@@ -1,0 +1,95 @@
+"""Carry the JAX package's state into the port's objects.
+
+The system has no learned weights: its state is data — the packed GRM
+tiles of a streaming build, a Kernel's matrix and counts or its
+eigenpairs, and fitted REML variances.  Each function here takes that
+state as numpy arrays (what `np.asarray` gives for a jax.Array, or what
+the JAX package writes to disk) and returns the port's object on
+`device`, so a run can start mid-pipeline from state the JAX package
+produced.  Nothing here imports the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from dissect_tpu_torch.linalg.grm_kernels import packed_shape
+from dissect_tpu_torch.linalg.syrk import grm_accumulator
+from dissect_tpu_torch.model.kernels import Kernel, KernelType
+from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE
+
+
+def grm_accumulator_from_packed(kernel_tiles, counts_tiles, n: int, block_n: int,
+                                device="cuda") -> grm_accumulator:
+    """A streaming GRM accumulator resumed from packed (T*BN, BN) tiles in
+    `_pair_maps` order (dissect_tpu/linalg/pallas_syrk.py), e.g. the
+    buffers of `grm_fused_triangle_update` or of a triangle-mode
+    `grm_accumulator`."""
+    acc = grm_accumulator(n, device=device, block_n=block_n)
+    for name, tiles in (("kernel", kernel_tiles), ("counts", counts_tiles)):
+        tiles = np.array(tiles, dtype=np.float32)
+        if tiles.shape != packed_shape(n, block_n):
+            raise ValueError(
+                f"{name} tiles have shape {tiles.shape}, expected "
+                f"{packed_shape(n, block_n)} for n={n}, block_n={block_n}"
+            )
+        getattr(acc, name).copy_(torch.as_tensor(tiles, dtype=torch.float32))
+    return acc
+
+
+def kernel_from_state(
+    individual_keys: Sequence[str],
+    matrix=None,
+    counts=None,
+    eigenvalues=None,
+    eigenvectors=None,
+    snp_names: Sequence[str] = (),
+    name: str = "GRM",
+    device="cuda",
+) -> Kernel:
+    """A GRM Kernel from a JAX Kernel's matrix and counts (kept in the
+    GRM dtype, float32), or from its eigenpairs (kept in float64)."""
+    n = len(individual_keys)
+    if (matrix is None) == (eigenvalues is None):
+        raise ValueError("give either matrix (and counts) or eigenvalues and eigenvectors")
+    put = lambda a, dtype: torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+    if matrix is not None:
+        if np.shape(matrix) != (n, n):
+            raise ValueError(f"matrix shape {np.shape(matrix)} != ({n}, {n})")
+        return Kernel(
+            name=name,
+            type=KernelType.GRM,
+            individual_keys=list(individual_keys),
+            snp_names=list(snp_names),
+            matrix=put(matrix, GRM_DTYPE),
+            counts=None if counts is None else put(counts, GRM_DTYPE),
+        )
+    if np.shape(eigenvalues) != (n,) or np.shape(eigenvectors) != (n, n):
+        raise ValueError("eigenpairs do not match the individual count")
+    return Kernel(
+        name=name,
+        type=KernelType.GRM,
+        individual_keys=list(individual_keys),
+        snp_names=list(snp_names),
+        diagonalized=True,
+        eigenvalues=put(eigenvalues, torch.float64),
+        eigenvectors=put(eigenvectors, torch.float64),
+    )
+
+
+def reml_theta(variance_names: Sequence[str], variances,
+               order: Optional[Sequence[str]] = None) -> np.ndarray:
+    """REML variances (a JAX REMLResult's `variance_names`/`variances`)
+    as a float64 vector in the order `order` names (default: as given),
+    e.g. a port model's `variance_names()` to start its fit there."""
+    values = dict(zip(variance_names, np.asarray(variances, dtype=np.float64)))
+    if len(values) != len(variance_names):
+        raise ValueError("repeated variance names")
+    order = list(variance_names) if order is None else list(order)
+    missing = [nm for nm in order if nm not in values]
+    if missing:
+        raise ValueError(f"no value for variances {missing}")
+    return np.array([values[nm] for nm in order], dtype=np.float64)

@@ -1,0 +1,155 @@
+"""K1 — the fused int8-standardize + triangle-only dual syrk — and the
+packed lower-triangle tile layout it writes.
+
+Port of dissect_tpu/linalg/pallas_syrk.py (`grm_fused_triangle_update`,
+`_pair_maps`, `packed_shape`, `unpack_triangle`).  The packed layout is
+kept at the boundary: (T*BN, BN) float32 buffers, tile t = output tile
+(imap[t], jmap[t]) in the order (0,0), (1,0), (1,1), (2,0), ..., so the
+port's buffers compare tile for tile with the JAX kernel's at the same
+`block_n`.  BN is a layout unit here; the CUDA kernel
+(csrc/grm_syrk.cu) chooses its own 128 x 128 work tiles inside it.
+
+`grm_fused_triangle_update` launches the CUDA kernel for tensors on the
+card and runs `plain_grm_fused_triangle_update` only for tensors on the
+CPU.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from dissect_tpu_torch.linalg.syrk import grm_update
+from dissect_tpu_torch.runtime import cuda_lib
+
+
+def _pair_maps(nt: int):
+    pairs = [(i, j) for i in range(nt) for j in range(i + 1)]
+    imap = np.asarray([p[0] for p in pairs], dtype=np.int64)
+    jmap = np.asarray([p[1] for p in pairs], dtype=np.int64)
+    return pairs, imap, jmap
+
+
+def packed_shape(n: int, block_n: int = 512) -> Tuple[int, int]:
+    """Shape of the packed tile buffer for an n-column operand."""
+    nt = -(-n // block_n)
+    return (nt * (nt + 1) // 2 * block_n, block_n)
+
+
+def pack_triangle(full: torch.Tensor, block_n: int = 512) -> torch.Tensor:
+    """Full (n, n) -> packed (T*BN, BN) lower-triangle tiles (zero-padded
+    to whole tiles); the inverse of `unpack_triangle`."""
+    n = full.shape[0]
+    nt = -(-n // block_n)
+    np_ = nt * block_n
+    if np_ != n:
+        full = torch.nn.functional.pad(full, (0, np_ - n, 0, np_ - n))
+    _, imap, jmap = _pair_maps(nt)
+    tiles4 = full.reshape(nt, block_n, nt, block_n).permute(0, 2, 1, 3)
+    idx_i = torch.as_tensor(imap, device=full.device)
+    idx_j = torch.as_tensor(jmap, device=full.device)
+    return tiles4[idx_i, idx_j].reshape(-1, block_n)
+
+
+def unpack_triangle(tiles: torch.Tensor, n: int, block_n: int = 512) -> torch.Tensor:
+    """(T*BN, BN) packed lower-triangle tiles -> full symmetric (n, n), as
+    one gather over the packed tile index."""
+    nt = -(-n // block_n)
+    np_ = nt * block_n
+    pairs, _, _ = _pair_maps(nt)
+    tiles = tiles.reshape(len(pairs), block_n, block_n)
+    tile_idx = np.zeros((nt, nt), dtype=np.int64)
+    needs_t = np.zeros((nt, nt), dtype=bool)
+    for ti, (i, j) in enumerate(pairs):
+        tile_idx[i, j] = ti
+        tile_idx[j, i] = ti
+        needs_t[j, i] = i != j
+    full4 = tiles[torch.as_tensor(tile_idx, device=tiles.device)]
+    full4 = torch.where(
+        torch.as_tensor(needs_t, device=tiles.device)[:, :, None, None],
+        full4.transpose(2, 3),
+        full4,
+    )
+    sym = full4.permute(0, 2, 1, 3).reshape(np_, np_)
+    return sym[:n, :n]
+
+
+def plain_grm_fused_triangle_update(
+    dosage, mean, inv_std, kernel_tiles, counts_tiles, block_n: int = 512
+):
+    """The plain version of K1: the full-square float32 step
+    (`grm_update`: Z^T Z and O^T O), its lower tiles gathered and added
+    in place."""
+    n = dosage.shape[1]
+    zero = torch.zeros((n, n), dtype=torch.float32, device=dosage.device)
+    kern, cnt = grm_update(zero, zero, dosage, mean, inv_std)
+    kernel_tiles += pack_triangle(kern, block_n)
+    counts_tiles += pack_triangle(cnt, block_n)
+    return kernel_tiles, counts_tiles
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, dosage on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def grm_fused_triangle_update(
+    dosage, mean, inv_std, kernel_tiles, counts_tiles, block_n: int = 512
+):
+    """One streaming-GRM step: adds the lower-triangle tiles of Z^T Z and
+    O^T O of the int8 chunk (-1 = missing) to the packed float32 buffers
+    IN PLACE, and returns them.
+
+    On the card this launches csrc/grm_syrk.cu (or raises); only tensors
+    on the CPU take the plain version."""
+    if dosage.device.type == "cpu":
+        return plain_grm_fused_triangle_update(
+            dosage, mean, inv_std, kernel_tiles, counts_tiles, block_n
+        )
+    if dosage.device.type != "cuda":
+        raise ValueError(f"no GRM kernel for device {dosage.device}")
+    if dosage.dim() != 2:
+        raise ValueError("dosage must be (m, n)")
+    m, n = dosage.shape
+    device = dosage.device
+    _check("dosage", dosage, torch.int8, (m, n), device)
+    _check("mean", mean, torch.float32, (m,), device)
+    _check("inv_std", inv_std, torch.float32, (m,), device)
+    shape = packed_shape(n, block_n)
+    _check("kernel_tiles", kernel_tiles, torch.float32, shape, device)
+    _check("counts_tiles", counts_tiles, torch.float32, shape, device)
+    if (-(-block_n // 128)) ** 2 > 65535:
+        raise ValueError(f"block_n {block_n} too large for the kernel's grid")
+    if m == 0:
+        return kernel_tiles, counts_tiles
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = lib.grm_fused_triangle_update(
+            dosage.data_ptr(), mean.data_ptr(), inv_std.data_ptr(),
+            kernel_tiles.data_ptr(), counts_tiles.data_ptr(),
+            m, n, block_n, shape[0] // block_n, cuda_lib.stream_handle(device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"grm_fused_triangle_update: CUDA error {rc}")
+    grm_fused_triangle_update.launches += 1
+    return kernel_tiles, counts_tiles
+
+
+grm_fused_triangle_update.launches = 0
+
+
+def _library():
+    lib = cuda_lib.load("grm_syrk")
+    fn = lib.grm_fused_triangle_update
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    return lib

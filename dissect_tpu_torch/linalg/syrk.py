@@ -1,0 +1,91 @@
+"""Symmetric rank-k accumulation — the GRM hot loop.
+
+Parity: Matrix::multiply(Z, 'T', Z, 'N') -> pdsyrk_ (matrix.cpp:2682),
+consumed by the GRM build kernel = Z^T Z, N = missings^T missings
+(kernel.cpp:92-109).  Port of dissect_tpu/linalg/syrk.py.
+
+Raw int8 dosage chunks (M_chunk, N) stream to the device; the
+standardization (d - 2p)/sqrt(2p(1-p)), missing -> 0
+(genotype.cpp:888-970), fuses into the products.  The accumulator keeps
+the lower-triangle tiles PACKED across chunks and mirrors them once at
+`finalize`: on the card every chunk goes through kernel K1
+(linalg/grm_kernels.py), on the CPU through its plain version, which
+gives the same packed buffers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def standardize_chunk(dosage, mean, inv_std, dtype):
+    """GCTA standardization of an (M, N) chunk: z = (d - 2p)/std.
+
+    `mean` = 2 p2 and `inv_std` are per-SNP (M,) vectors; missing maps
+    to 0 so it contributes nothing to the Gram matrix (parity:
+    genotype.cpp:943-961).  Integer chunks (PLINK hard calls) mark
+    missing as -1; float chunks (imputed dosages) mark missing as NaN.
+    Returns (Z, observed) both in `dtype`."""
+    if dosage.is_floating_point():
+        finite = torch.isfinite(dosage)
+        observed = finite.to(dtype)
+        d = torch.where(finite, dosage, torch.zeros_like(dosage)).to(dtype)
+    else:
+        observed = (dosage >= 0).to(dtype)
+        d = dosage.to(dtype)
+    z = observed * (d - mean[:, None].to(dtype)) * inv_std[:, None].to(dtype)
+    return z, observed
+
+
+def grm_update(kernel, counts, dosage, mean, inv_std, compute_dtype=torch.float32):
+    """One dense accumulation step: kernel += Z_c^T Z_c, counts += O_c^T O_c.
+
+    The full-square form of the step, which K1's plain version packs;
+    the accumulator below runs the packed triangle form (K1) instead."""
+    z, observed = standardize_chunk(dosage, mean, inv_std, compute_dtype)
+    kernel = kernel + (z.T @ z).to(kernel.dtype)
+    counts = counts + (observed.T @ observed).to(counts.dtype)
+    return kernel, counts
+
+
+class grm_accumulator:
+    """Streaming GRM builder: feed (chunk, N) int8 dosage blocks (-1 =
+    missing), finalize to the full (kernel, counts).
+
+    The host loop feeds decoded BED chunks; each `update` is one K1 step
+    into the packed float32 tiles on `device`, and `finalize` unpacks
+    once (genotype.cpp:639-707, kernel.cpp:92-109)."""
+
+    def __init__(self, n_individuals: int, device="cuda", block_n: int = 512):
+        from dissect_tpu_torch.linalg.grm_kernels import packed_shape
+
+        self.n = n_individuals
+        self.block_n = block_n
+        self.device = torch.device(device)
+        shape = packed_shape(n_individuals, block_n)
+        self.kernel = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        self.counts = torch.zeros(shape, dtype=torch.float32, device=self.device)
+
+    def update(self, dosage, mean, inv_std):
+        from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update
+
+        dosage = torch.as_tensor(dosage, device=self.device)
+        if dosage.is_floating_point():
+            raise NotImplementedError(
+                "float (imputed) dosages need kernel K2, not ported yet "
+                "(ROADMAP.md queue 1, item 4)"
+            )
+        as_f32 = lambda v: torch.as_tensor(v, device=self.device).to(torch.float32).contiguous()
+        grm_fused_triangle_update(
+            dosage.to(torch.int8).contiguous(), as_f32(mean), as_f32(inv_std),
+            self.kernel, self.counts, block_n=self.block_n,
+        )
+        return self
+
+    def finalize(self):
+        from dissect_tpu_torch.linalg.grm_kernels import unpack_triangle
+
+        return (
+            unpack_triangle(self.kernel, self.n, self.block_n),
+            unpack_triangle(self.counts, self.n, self.block_n),
+        )

@@ -6,21 +6,27 @@ Phases, each of which stops the script on failure:
 
   1. build     compile every hand-written kernel under dissect_tpu_torch/csrc/
                (one nvcc per source, all started together);
-  2. kernels   hold each kernel against its plain PyTorch version on the card,
-               at a ragged shape and at the shape the main path gives it, and
-               time kernel, plain version and (where one exists) the single
-               PyTorch call that computes the same function;
-  3. golden    the CLI on the repository's golden cohort (tests/golden), on
-               the card, against the stored golden files;
-  4. main      a synthetic PLINK cohort at the size users run (10,000
-               individuals x 50,000 SNPs, 1% missing, 2 quantitative
+  2. kernels   hold each kernel (K1, K2, K3) against its plain PyTorch version
+               on the card, at a ragged shape and at the shape the main paths
+               give it, and time kernel, plain version and (where one exists)
+               the single PyTorch call that computes the same function;
+  3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
+               and BGEN input, on the card, against the stored golden files;
+  4. main      the PLINK path: a synthetic PLINK cohort at the size users run
+               (10,000 individuals x 50,000 SNPs, 1% missing, 2 quantitative
                covariates, a phenotype with h2 = 0.5 from 500 causal SNPs),
                then `--make-grm` and `--gwas --grm` through the CLI's main();
                every kernel launch counter is zeroed just before and read
                just after;
   5. checks    finite outputs of the right shape, causal SNPs enriched among
                the smallest p-values, and on a 512-SNP subset the refit through
-               K3 against the refit through K3's plain version.
+               K3 against the refit through K3's plain version;
+  6. bgen      the BGEN path: a synthetic imputed cohort of the same size in
+               UK Biobank's format (BGEN layout 2, 8-bit, zlib), dosages blurred
+               off the hard calls, 1% missing, the same covariate and phenotype
+               recipe, then `--make-grm --bgen` and `--gwas --grm --bgen`
+               through main(), launch counters zeroed just before and read just
+               after, and the same science checks.
 
 The last lines of standard output are the `kernels` JSON line, the card's
 name and power limit as nvidia-smi reports them, and the result line
@@ -47,7 +53,8 @@ N_INDIVIDUALS = 10_000
 N_SNPS = 50_000
 N_CAUSAL = 500
 SEED = 20261016
-GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's row count on the main path
+BGEN_SNPS = 50_000
+GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's and K2's row count on the main paths
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
 # One NVIDIA H100 SXM (NVIDIA data sheet, dense rates): float32 outside the
@@ -58,9 +65,11 @@ PEAK_BYTES_PER_S = 3.35e12
 # Tolerances of the kernel-vs-plain comparisons, relative to the largest
 # magnitude of the plain result: both sides sum the same float32 terms in
 # different orders, whose rounding grows like sqrt(terms) * eps32 ~ 1e-5
-# at these contraction lengths (2,048 SNP rows for K1, 10,000 eigenbasis
-# entries for K3).  K1's counts are sums of 0/1 products: exact.
+# at these contraction lengths (2,048 SNP rows for K1 and K2, 10,000
+# eigenbasis entries for K3).  K1's counts and K2 on the 0/1 mask are sums
+# of 0/1 products: exact.
 K1_REL_TOL = 1e-5
+K2_REL_TOL = 1e-5
 K3_REL_TOL = 1e-4
 # The 512-SNP refit through K3 vs through its plain version: 15 float32
 # Fisher steps on moments that differ by rounding; the bound JAX's tests
@@ -200,6 +209,77 @@ def compare_k1(gen, m, n, block_n, device, timed):
     }
 
 
+def _imputed_on_card(gen, m, n, missing, device):
+    """(m, n) float32 imputed-style dosages: hard calls (MAF uniform on
+    [0.05, 0.5]) that posterior uncertainty has moved up to 0.25 toward a
+    neighbouring genotype, so most values are not integers; NaN =
+    missing."""
+    d = _dosage_on_card(gen, m, n, 0.0, device).to(torch.float32)
+    blur = 0.25 * torch.rand((m, n), generator=gen, device=device)
+    up = torch.rand((m, n), generator=gen, device=device) < 0.5
+    step = torch.where((d == 0) | ((d == 1) & up), blur, -blur)
+    d = d + step
+    miss = torch.rand((m, n), generator=gen, device=device) < missing
+    return torch.where(miss, torch.full_like(d, float("nan")), d)
+
+
+def _float_scaling(d):
+    """Per-row empirical mean and 1/std of a NaN-missing float chunk."""
+    obs = torch.isfinite(d)
+    x = torch.where(obs, d, torch.zeros_like(d)).to(torch.float64)
+    cnt = obs.sum(1).clamp_min(1)
+    mean = x.sum(1) / cnt
+    var = (torch.where(obs, x - mean[:, None], torch.zeros_like(x)) ** 2).sum(1) / (cnt - 1).clamp_min(1)
+    return mean.to(torch.float32), (1.0 / torch.sqrt(var)).to(torch.float32)
+
+
+def compare_k2(gen, m, n, block_n, device, timed):
+    """K2 on a standardized float chunk (NaN entries zeroed) and on its 0/1
+    observed mask, the two calls the streaming GRM makes per chunk."""
+    from dissect_tpu_torch.linalg import grm_kernels as gk
+    from dissect_tpu_torch.linalg.syrk import standardize_chunk
+
+    d = _imputed_on_card(gen, m, n, 0.01, device)
+    mean, inv_std = _float_scaling(d)
+    z, o = standardize_chunk(d, mean, inv_std, torch.float32)
+    z, o = z.contiguous(), o.contiguous()
+    k_kern = gk.syrk_triangle_packed(z, block_n)
+    k_plain = gk.plain_syrk_triangle_packed(z, block_n)
+    c_kern = gk.syrk_triangle_packed(o, block_n)
+    c_plain = gk.plain_syrk_triangle_packed(o, block_n)
+    torch.cuda.synchronize()
+    check(tuple(k_kern.shape) == gk.packed_shape(n, block_n), f"K2 output shape {tuple(k_kern.shape)}")
+    err = float((k_kern - k_plain).abs().max())
+    scale = float(k_plain.abs().max())
+    mask_equal = bool(torch.equal(c_kern, c_plain))
+    log(f"K2 m={m} n={n} block_n={block_n}: max_abs_err {err:.3e} (scale {scale:.3e}, "
+        f"tol {K2_REL_TOL:g} x scale), mask product exact: {mask_equal}")
+    check(math.isfinite(err) and err <= K2_REL_TOL * scale, "K2 disagrees with its plain version")
+    check(mask_equal, "K2 on the 0/1 mask differs from its plain version")
+    if not timed:
+        return None
+    ms = time_ms(lambda: gk.syrk_triangle_packed(z, block_n))
+    plain_ms = time_ms(lambda: gk.plain_syrk_triangle_packed(z, block_n), iters=5)
+    library_ms = time_ms(lambda: torch.mm(z.T, z), iters=5)
+    shape = gk.packed_shape(n, block_n)
+    n_bytes = 4 * m * n + 4 * shape[0] * shape[1]  # z read, packed tiles written
+    n_flops = 2 * m * _needed_entries(n, block_n)
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    return {
+        "name": "syrk_triangle_packed",
+        "route": "cuda",
+        "source": "dissect_tpu_torch/csrc/syrk_packed.cu",
+        "replaces": "dissect_tpu/linalg/pallas_syrk.py:61",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": library_ms,
+        "shape": {"m": m, "n": n, "block_n": block_n},
+    }
+
+
 def _k3_inputs(gen, m, n, q, device):
     from dissect_tpu_torch.gwas.mlm import refit_features
 
@@ -255,16 +335,19 @@ def phase_kernels(device):
     compare_k1(gen, GRM_CHUNK, 1000, BLOCK_N, device, timed=False)
     compare_k1(gen, 333, 1000, 200, device, timed=False)
     k1 = compare_k1(gen, GRM_CHUNK, N_INDIVIDUALS, BLOCK_N, device, timed=True)
+    compare_k2(gen, 333, 1000, 200, device, timed=False)
+    k2 = compare_k2(gen, GRM_CHUNK, N_INDIVIDUALS, BLOCK_N, device, timed=True)
     compare_k3(gen, 777, 1000, 4, device, timed=False)
     compare_k3(gen, 300, 1000, 9, device, timed=False)
     k3 = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 4, device, timed=True)
-    return [k1, k3]
+    return [k1, k2, k3]
 
 
 # ----------------------------------------------------------------- phase 3 --
 def phase_golden(workdir):
-    """The CLI on tests/golden on the card.  The GRM is float32 on both
-    sides: kernel at rtol 1e-5 (sums in another order), counts exact.
+    """The CLI on tests/golden on the card.  The GRMs (PLINK and BGEN
+    input) are float32 on both sides: kernel at rtol 1e-5 (sums in
+    another order), counts exact, ids and SNP lists equal.
     The GWAS runs in float32 on the card against float64 golden files:
     estimates and SEs at rtol 1e-3 (atol 1e-3 x SE for estimates near 0),
     and the same unfitted SNPs."""
@@ -291,7 +374,16 @@ def phase_golden(workdir):
     unfit_ours = Path(f"{out}.mlm.gwas.unfitted").read_text().split()
     unfit_ref = (golden / "golden.mlm.gwas.unfitted").read_text().split()
     check(unfit_ours == unfit_ref, f"golden mlm: unfitted {unfit_ours} != {unfit_ref}")
-    log("golden cohort on the card: GRM, OLS and mixed-model GWAS agree with tests/golden")
+    # the BGEN-ingested GRM: K2 on the card against golden.bgen.grm.*
+    main(["--make-grm", "--bgen", str(golden / "cohort.bgen"), "--out", f"{out}.bgen"])
+    new, old = read_grm(f"{out}.bgen"), read_grm(str(golden / "golden.bgen"))
+    np.testing.assert_allclose(new["kernel"], old["kernel"], rtol=1e-5, atol=1e-7)
+    np.testing.assert_array_equal(new["counts"], old["counts"])
+    for ext in ("grm.ids", "grm.snps"):
+        check(Path(f"{out}.bgen.{ext}").read_bytes() == (golden / f"golden.bgen.{ext}").read_bytes(),
+              f"golden BGEN .{ext} differs")
+    log("golden cohort on the card: GRM, OLS and mixed-model GWAS, and the BGEN GRM, "
+        "agree with tests/golden")
 
 
 def _read_gwas(path):
@@ -306,10 +398,43 @@ def _read_gwas(path):
 
 
 # ----------------------------------------------------------------- phase 4 --
+def _write_traits(workdir, gen, causal_rows, ids, device):
+    """The phenotype (h2 = 0.5 from the causal rows, 2 quantitative
+    covariates with effects 0.3 and -0.2) and the covariate file, each row
+    keyed by its (FID, IID) pair.  Missing genotypes (-1 or NaN) count 0."""
+    d = causal_rows
+    obs = torch.isfinite(d) if d.is_floating_point() else d >= 0
+    df = torch.where(obs, d, torch.zeros_like(d)).to(torch.float64)
+    mu = df.sum(1, keepdim=True) / obs.sum(1, keepdim=True)
+    zc = torch.where(obs, (df - mu) / df.std(1, keepdim=True), torch.zeros_like(df))
+    n = d.shape[1]
+    beta = torch.randn((d.shape[0],), generator=gen, device=device, dtype=torch.float64)
+    genetic = beta @ zc
+    genetic = genetic / genetic.std() * math.sqrt(0.5)
+    noise = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+    qcov = torch.randn((n, 2), generator=gen, device=device, dtype=torch.float64)
+    y = 1.0 + qcov @ torch.tensor([0.3, -0.2], device=device, dtype=torch.float64) + genetic \
+        + noise * math.sqrt(0.5)
+    y_h, q_h = y.cpu().numpy(), qcov.cpu().numpy()
+    with open(workdir / "pheno.txt", "w") as fh:
+        for i, (fid, iid) in enumerate(ids):
+            fh.write(f"{fid} {iid} {y_h[i]:.10f}\n")
+    with open(workdir / "qcovar.txt", "w") as fh:
+        for i, (fid, iid) in enumerate(ids):
+            fh.write(f"{fid} {iid} {q_h[i, 0]:.10f} {q_h[i, 1]:.10f}\n")
+
+
+def _snp_infos(m):
+    from dissect_tpu_torch.io.bed import SnpInfo
+
+    return [SnpInfo(str(1 + i * 22 // m), f"rs{i:06d}", 0.0, 1000 + 100 * i, "A", "G")
+            for i in range(m)]
+
+
 def write_cohort(workdir, device):
-    """The synthetic cohort, made on the card from SEED: PLINK files, a
-    2-column quantitative covariate file and the phenotype."""
-    from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, SnpInfo, write_plink
+    """The synthetic PLINK cohort, made on the card from SEED: PLINK files,
+    a 2-column quantitative covariate file and the phenotype."""
+    from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, write_plink
 
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 1)
@@ -320,92 +445,91 @@ def write_cohort(workdir, device):
         dosage[s:s + step] = _dosage_on_card(gen, min(step, m - s), n, 0.01, device).cpu().numpy()
     causal = torch.randperm(m, generator=gen, device=device)[:N_CAUSAL].sort().values
     d = torch.as_tensor(dosage[causal.cpu().numpy()], device=device)
-    obs = d >= 0
-    df = torch.where(obs, d, torch.zeros_like(d)).to(torch.float64)
-    mu = df.sum(1, keepdim=True) / obs.sum(1, keepdim=True)
-    zc = torch.where(obs, (df - mu) / df.std(1, keepdim=True), torch.zeros_like(df))
-    beta = torch.randn((N_CAUSAL,), generator=gen, device=device, dtype=torch.float64)
-    genetic = beta @ zc
-    genetic = genetic / genetic.std() * math.sqrt(0.5)
-    noise = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
-    qcov = torch.randn((n, 2), generator=gen, device=device, dtype=torch.float64)
-    y = 1.0 + qcov @ torch.tensor([0.3, -0.2], device=device, dtype=torch.float64) + genetic \
-        + noise * math.sqrt(0.5)
-
+    ids = [(f"F{i}", f"I{i}") for i in range(n)]
+    _write_traits(workdir, gen, d, ids, device)
     data = PlinkData(
-        snps=[SnpInfo(str(1 + i * 22 // m), f"rs{i:06d}", 0.0, 1000 + 100 * i, "A", "G")
-              for i in range(m)],
-        individuals=[IndividualInfo(f"F{i}", f"I{i}") for i in range(n)],
+        snps=_snp_infos(m),
+        individuals=[IndividualInfo(fid, iid) for fid, iid in ids],
         _dosage=dosage,
     )
     prefix = workdir / "cohort"
     write_plink(str(prefix), data)
-    y_h, q_h = y.cpu().numpy(), qcov.cpu().numpy()
-    with open(workdir / "pheno.txt", "w") as fh:
-        for i in range(n):
-            fh.write(f"F{i} I{i} {y_h[i]:.10f}\n")
-    with open(workdir / "qcovar.txt", "w") as fh:
-        for i in range(n):
-            fh.write(f"F{i} I{i} {q_h[i, 0]:.10f} {q_h[i, 1]:.10f}\n")
-    return prefix, {f"rs{i:06d}" for i in causal.cpu().numpy()}
+    return ["--bfile", str(prefix)], {f"rs{i:06d}" for i in causal.cpu().numpy()}
 
 
-def phase_main(workdir, prefix, counters):
+def drive_path(tag, workdir, genotype_args, counters, expect):
+    """`--make-grm` then `--gwas --grm` through the CLI's main(), with
+    every launch counter zeroed just before and read just after; fails if
+    a kernel in `expect` was not launched.  Returns (launches, seconds),
+    the seconds of each step and of its dispatcher phases."""
     from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.runtime.timers import timers
 
-    args = ["--bfile", str(prefix), "--pheno", str(workdir / "pheno.txt"),
-            "--qcovar", str(workdir / "qcovar.txt")]
+    args = genotype_args + ["--pheno", str(workdir / "pheno.txt"),
+                            "--qcovar", str(workdir / "qcovar.txt")]
     for fn in counters.values():
         fn.launches = 0
     seconds = {}
     t0 = time.monotonic()
     main(["--make-grm"] + args + ["--out", str(workdir / "grm")])
-    seconds["make_grm"] = time.monotonic() - t0
-    seconds.update({f"make_grm.{k}": v for k, v in timers.elapsed.items()})
+    seconds[f"{tag}make_grm"] = time.monotonic() - t0
+    seconds.update({f"{tag}make_grm.{k}": v for k, v in timers.elapsed.items()})
     t0 = time.monotonic()
     main(["--gwas", "--grm", str(workdir / "grm")] + args + ["--out", str(workdir / "mlm")])
-    seconds["gwas_grm"] = time.monotonic() - t0
-    seconds.update({f"gwas_grm.{k}": v for k, v in timers.elapsed.items()})
+    seconds[f"{tag}gwas_grm"] = time.monotonic() - t0
+    seconds.update({f"{tag}gwas_grm.{k}": v for k, v in timers.elapsed.items()})
     launches = {name: fn.launches for name, fn in counters.items()}
-    log("main path launches: " + json.dumps(launches))
-    for name, count in launches.items():
-        check(count > 0, f"kernel {name} was not launched on the main path")
+    log(f"{tag or 'plink_'}path launches: " + json.dumps(launches))
+    for name in expect:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {tag or 'plink_'}path")
     return launches, seconds
 
 
 # ----------------------------------------------------------------- phase 5 --
-def phase_checks(workdir, prefix, causal, device):
-    from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
-    from dissect_tpu_torch.gwas.moments_kernels import plain_refit_moments
-    from dissect_tpu_torch.io.bed import read_plink
+def science_checks(workdir, causal, n_snps):
+    """The GRM (finite, symmetric, counts in range, mean diagonal near 1)
+    and the GWAS (every SNP fitted or listed unfitted, under 1% unfitted,
+    finite, causal SNPs at least 10x enriched among the smallest
+    p-values) of one path."""
     from dissect_tpu_torch.io.grm_io import read_grm
 
     grm = read_grm(str(workdir / "grm"))
     k, c = grm["kernel"], grm["counts"]
     check(k.shape == (N_INDIVIDUALS, N_INDIVIDUALS) and np.isfinite(k).all(), "GRM not finite")
     check(np.array_equal(k, k.T) and np.array_equal(c, c.T), "GRM not symmetric")
-    check(c.max() <= N_SNPS and c.min() > 0.9 * N_SNPS, "GRM counts out of range")
+    check(c.max() <= n_snps and c.min() > 0.9 * n_snps, "GRM counts out of range")
     mean_diag = float(np.mean(np.diag(k)))
     check(abs(mean_diag - 1.0) < 0.05, f"GRM mean diagonal {mean_diag}")
 
     rows = _read_gwas(workdir / "mlm.gwas.snps")
     unfitted_path = workdir / "mlm.gwas.unfitted"
     unfitted = unfitted_path.read_text().split() if unfitted_path.exists() else []
-    check(len(rows) + len(unfitted) == N_SNPS, "GWAS rows + unfitted != SNPs")
-    check(len(unfitted) < 0.01 * N_SNPS, f"{len(unfitted)} unfitted SNPs")
+    check(len(rows) + len(unfitted) == n_snps, "GWAS rows + unfitted != SNPs")
+    check(len(unfitted) < 0.01 * n_snps, f"{len(unfitted)} unfitted SNPs")
     vals = np.array(list(rows.values()))
     check(np.isfinite(vals).all(), "non-finite GWAS output")
     names = list(rows)
     top = [names[i] for i in np.argsort(vals[:, 2])[:N_CAUSAL]]
     hits = sum(1 for nm in top if nm in causal)
-    enrichment = hits / N_CAUSAL / (N_CAUSAL / N_SNPS)
+    enrichment = hits / N_CAUSAL / (N_CAUSAL / n_snps)
     log(f"causal SNPs among the {N_CAUSAL} smallest p-values: {hits} "
         f"({enrichment:.1f}x the base rate); {len(unfitted)} unfitted")
     check(enrichment >= 10.0, "causal SNPs not enriched among the smallest p-values")
+    return k, {"causal_in_top": hits, "enrichment": enrichment, "unfitted": len(unfitted),
+               "grm_mean_diag": mean_diag}
+
+
+def phase_checks(workdir, causal, device):
+    """The PLINK path's science checks, and on a 512-SNP subset the refit
+    through K3 against the refit through its plain version."""
+    from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
+    from dissect_tpu_torch.gwas.moments_kernels import plain_refit_moments
+    from dissect_tpu_torch.io.bed import read_plink
+
+    k, summary = science_checks(workdir, causal, N_SNPS)
 
     # 512-SNP subset: refit through K3 vs through its plain version, on the card
-    data = read_plink(str(prefix))
+    data = read_plink(str(workdir / "cohort"))
     pheno = {}
     with open(workdir / "pheno.txt") as fh:
         for line in fh:
@@ -445,8 +569,53 @@ def phase_checks(workdir, prefix, causal, device):
                                atol=REFIT_RTOL * float(plain.snp_se[both].min()))
     log(f"512-SNP subset: K3 vs plain refit agree at rtol {REFIT_RTOL:g} on {int(both.sum())} SNPs "
         f"(max beta diff {np.max(np.abs(fused.snp_beta[both] - plain.snp_beta[both])):.3e})")
-    return {"causal_in_top": hits, "enrichment": enrichment, "unfitted": len(unfitted),
-            "grm_mean_diag": mean_diag, "null_variances": list(theta)}
+    return {**summary, "null_variances": list(theta)}
+
+
+# ----------------------------------------------------------------- phase 6 --
+def write_bgen_cohort(workdir, device):
+    """The synthetic imputed cohort, made on the card from SEED + 2, in UK
+    Biobank's imputed format (BGEN layout 2, 8-bit probabilities, zlib),
+    written with the port's write_bgen.  BGEN sample ids give FID = IID,
+    so the phenotype and covariate files carry the id in both columns."""
+    from dissect_tpu_torch.io.bed import IndividualInfo
+    from dissect_tpu_torch.io.bgen import BgenData, write_bgen
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    n, m = N_INDIVIDUALS, BGEN_SNPS
+    dosage = np.empty((m, n), dtype=np.float32)
+    step = 5000
+    for s in range(0, m, step):
+        dosage[s:s + step] = _imputed_on_card(gen, min(step, m - s), n, 0.01, device).cpu().numpy()
+    integral = float(np.mean(dosage[:step] == np.round(dosage[:step])))
+    log(f"BGEN cohort: {integral:.2%} of the first {step} variants' dosages are whole numbers")
+    check(integral < 0.5, "imputed dosages are mostly whole numbers")
+    causal = torch.randperm(m, generator=gen, device=device)[:N_CAUSAL].sort().values
+    d = torch.as_tensor(dosage[causal.cpu().numpy()], device=device)
+    ids = [(f"S{i}", f"S{i}") for i in range(n)]
+    _write_traits(workdir, gen, d, ids, device)
+    data = BgenData(snps=_snp_infos(m),
+                    individuals=[IndividualInfo(fid, iid) for fid, iid in ids],
+                    dosages=dosage)
+    path = workdir / "cohort.bgen"
+    write_bgen(str(path), data, bits=8, layout=2, compression="zlib")
+    log(f"BGEN cohort: {path.stat().st_size / 1e6:.1f} MB for {m} variants x {n} samples")
+    return ["--bgen", str(path)], {f"rs{i:06d}" for i in causal.cpu().numpy()}
+
+
+def time_bgen_host(path):
+    """Seconds of the two host steps inside the BGEN path's ComputeGRM and
+    LoadGenotypes, read_bgen (zlib + decode) and the dosage statistics,
+    timed apart once more."""
+    from dissect_tpu_torch.io.bgen import read_bgen
+
+    t0 = time.monotonic()
+    data = read_bgen(path)
+    t1 = time.monotonic()
+    data.stats()
+    t2 = time.monotonic()
+    return {"bgen_host.read_bgen": t1 - t0, "bgen_host.stats": t2 - t1}
 
 
 # -------------------------------------------------------------------- main --
@@ -465,7 +634,7 @@ def main():
         return 1
     sys.path.insert(0, str(REPO))
     from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments
-    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update
+    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update, syrk_triangle_packed
     from dissect_tpu_torch.runtime.dtypes import configure_precision
 
     os.environ.pop("DISSECT_TPU_TORCH_DEVICE", None)  # the CLI runs on the card
@@ -473,11 +642,15 @@ def main():
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     counters = {"grm_fused_triangle_update": grm_fused_triangle_update,
+                "syrk_triangle_packed": syrk_triangle_packed,
                 "fused_refit_moments": fused_refit_moments}
     workdir = REPO / ".chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
-    workdir.mkdir()
+    plink_dir, bgen_dir = workdir / "plink", workdir / "bgen"
+    plink_dir.mkdir(parents=True)
+    bgen_dir.mkdir()
     seconds = {}
+    peak_gb = {}
     try:
         t0 = time.monotonic()
         phase_build()
@@ -492,26 +665,44 @@ def main():
         seconds["golden"] = time.monotonic() - t0
 
         t0 = time.monotonic()
-        prefix, causal = write_cohort(workdir, device)
+        plink_args, causal = write_cohort(plink_dir, device)
         seconds["write_cohort"] = time.monotonic() - t0
-
         torch.cuda.reset_peak_memory_stats(device)
-        launches, main_seconds = phase_main(workdir, prefix, counters)
-        seconds.update(main_seconds)
-        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        plink_launches, path_seconds = drive_path(
+            "", plink_dir, plink_args, counters,
+            expect=("grm_fused_triangle_update", "fused_refit_moments"))
+        seconds.update(path_seconds)
+        peak_gb["plink"] = torch.cuda.max_memory_allocated(device) / 1e9
+        t0 = time.monotonic()
+        summary = {"plink": phase_checks(plink_dir, causal, device)}
+        seconds["checks"] = time.monotonic() - t0
+        shutil.rmtree(plink_dir, ignore_errors=True)
 
         t0 = time.monotonic()
-        summary = phase_checks(workdir, prefix, causal, device)
-        seconds["checks"] = time.monotonic() - t0
+        bgen_args, causal = write_bgen_cohort(bgen_dir, device)
+        seconds["write_bgen_cohort"] = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats(device)
+        bgen_launches, path_seconds = drive_path(
+            "bgen_", bgen_dir, bgen_args, counters,
+            expect=("syrk_triangle_packed", "fused_refit_moments"))
+        seconds.update(path_seconds)
+        peak_gb["bgen"] = torch.cuda.max_memory_allocated(device) / 1e9
+        t0 = time.monotonic()
+        _, summary["bgen"] = science_checks(bgen_dir, causal, BGEN_SNPS)
+        seconds["bgen_checks"] = time.monotonic() - t0
+        seconds.update(time_bgen_host(bgen_args[1]))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]]}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
     smi = nvidia_smi_line()
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
-    log("main path: " + json.dumps({**summary, "peak_device_gb": peak_gb,
-                                    "individuals": N_INDIVIDUALS, "snps": N_SNPS}))
+    log("main paths: " + json.dumps({**summary, "peak_device_gb": peak_gb,
+                                     "individuals": N_INDIVIDUALS,
+                                     "snps": {"plink": N_SNPS, "bgen": BGEN_SNPS}}))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,13 +3,15 @@
 Parity: Analysis (analysis.cpp:43-548) + main.cpp's dispatch chain
 (main.cpp:101-234) + the loaders-from-options in auxiliar.h:246-310.
 Port of the pieces of dissect_tpu/analysis/dispatcher.py on the
-`--make-grm` -> `--gwas [--grm]` path, on one device.  Every other
-analysis raises NotImplementedError naming its ROADMAP.md item.
+`--make-grm` -> `--gwas [--grm]` path (PLINK or BGEN input) and of the
+GRM family (`--make-grm-mr`, `--add-grms`, `--filter-matrix`,
+`--gcta-grms-gz`, `--grm-epi`), on one device.  Every other analysis
+raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -18,8 +20,10 @@ from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
 from dissect_tpu_torch.gwas.ols import GwasResults, ols_gwas
 from dissect_tpu_torch.io import grm_io
 from dissect_tpu_torch.io.bed import PlinkData, read_plink
+from dissect_tpu_torch.io.bgen import BgenData, read_bgen
 from dissect_tpu_torch.io.covariate import read_covariates
 from dissect_tpu_torch.io.ids import intersection_keeping_order
+from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.io.phenotype import n_phenotype_columns, read_phenotype
 from dissect_tpu_torch.model.kernels import Kernel, KernelType, grm_from_plink
 from dissect_tpu_torch.reml.single import SingleREML
@@ -45,20 +49,24 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _centered_genotypes(dosage: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
-    """Missing-zeroed mean-centered rows of an (m, N) int8 chunk (-1 =
-    missing), in float64 on the chunk's device; the caller casts to its
-    bulk dtype.  Centering on the device keeps the host at the int8 chunk
-    instead of M x N float64."""
-    observed = dosage >= 0
+    """Missing-zeroed mean-centered rows of an (m, N) chunk, for both hard
+    calls (int8, -1 missing) and imputed dosages (float, NaN missing), in
+    float64 on the chunk's device; the caller casts to its bulk dtype.
+    Centering on the device keeps the host at the raw chunk instead of
+    M x N float64."""
+    if dosage.is_floating_point():
+        observed = torch.isfinite(dosage)
+    else:
+        observed = dosage >= 0
     centered = dosage.to(torch.float64) - mean.to(torch.float64)[:, None]
     return torch.where(observed, centered, torch.zeros_like(centered))
 
 
-def _chunked_gwas(fn, data: PlinkData, mean: np.ndarray, device, dtype,
+def _chunked_gwas(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, device, dtype,
                   chunk: Optional[int] = None, row_variance: bool = False):
     """Run a per-SNP GWAS solver over SNP blocks and concatenate — bounds
     device and host memory at genome scale (gwas.cpp:126-312).  Each
-    block's int8 dosages are uploaded and centered on `device`.
+    block's raw dosages are uploaded and centered on `device`.
 
     Returns (results, per-SNP variance of the centered rows or None)."""
     chunk = chunk or GWAS_CHUNK_SNPS
@@ -105,12 +113,12 @@ class Analysis:
         self.log = get_logger()
 
     # ----------------------------------------------------------- loaders ---
-    def load_genotype(self) -> PlinkData:
+    def load_genotype(self) -> Union[PlinkData, BgenData]:
         """loadGenotypeUsingOptions parity (auxiliar.h:246-263)."""
         a = self.args
         if a.bgen:
-            raise _not_ported("--bgen input", "item 4")
-        if a.bfile:
+            data = read_bgen(a.bgen)
+        elif a.bfile:
             data = read_plink(a.bfile)
         elif a.bfile_list:
             with open(a.bfile_list) as fh:
@@ -163,12 +171,23 @@ class Analysis:
 
     def load_grm(self, allow_compute: bool = True) -> Kernel:
         """loadGRMUsingOptions parity (auxiliar.h:264-275): read a stored
-        .grm.* artifact or compute it from genotypes."""
+        .grm.* artifact or a GCTA gz GRM, or compute it from genotypes;
+        --grm-epi turns a stored or computed GRM into K .* K before it is
+        sanitized (dissect_tpu/analysis/dispatcher.py:261-304)."""
         a = self.args
         if a.gcta_grms_gz:
-            raise _not_ported("--gcta-grms-gz", "item 4")
-        if a.grm_epi:
-            raise _not_ported("--grm-epi", "item 4")
+            loaded = grm_io.read_gcta_grm_gz(a.gcta_grms_gz)
+            put = lambda x: torch.as_tensor(x).to(device=self.device, dtype=GRM_DTYPE)
+            kern = Kernel(
+                name="GRM",
+                type=KernelType.GCTA_GRM,
+                individual_keys=loaded["individual_keys"],
+                matrix=put(loaded["kernel"]),
+                counts=put(loaded["counts"]),
+            )
+            if a.grm_cutoff is not None:
+                kern = kern.prune(a.grm_cutoff)
+            return kern
         if a.grm:
             kern = self._kernel_from_loaded("GRM", grm_io.read_grm(a.grm))
         elif allow_compute and (a.bfile or a.bfile_list or a.bgen):
@@ -181,6 +200,8 @@ class Analysis:
             )
         else:
             raise ValueError("no GRM input (--grm / --bfile / --bgen)")
+        if a.grm_epi:
+            kern = kern.epistatic()
         n_before = kern.n
         kern = kern.sanitize(a.min_overlap_snps)
         if kern.n < a.min_prop_grm_inds_kept * n_before:
@@ -221,6 +242,14 @@ class Analysis:
         a = self.args
         with timers.phase("ComputeGRM"):
             kern = self.load_grm()
+        if kern.counts is None and (a.store_both or not a.diagonalize):
+            # dissect_tpu writes to_host(None) here and fails with an
+            # IndexError (dispatcher.py:402-403); the port names the cause
+            raise ValueError(
+                f"--make-grm cannot write [ {a.out}.grm.dat ]: the {kern.type.value} "
+                "kernel has no SNP counts (N matrix) to store beside it "
+                "(--grm-epi builds K .* K without counts; use --diagonalize)"
+            )
         if a.diagonalize:
             with timers.phase("DiagonalizeGRM"):
                 diag = kern.diagonalize()
@@ -232,6 +261,93 @@ class Analysis:
         else:
             self._write_grm(kern, a.out)
         self.log.message(f"GRM stored at [ {a.out}.grm.* ]")
+
+    def make_grm_most_related(self):
+        """--make-grm-mr (makeGRMAndStoreMostRelated,
+        analysis.cpp:113-135): store the full GRM, the subset of
+        individuals with relatedness outside [--mostr-lower-thr,
+        --mostr-upper-thr] as <out>.mostRelated.grm.*, and report how
+        many individuals each --cutoff-thrs prune level would drop."""
+        a = self.args
+        with timers.phase("ComputeGRM"):
+            kern = self.load_grm()
+
+        def write(k, prefix):
+            counts = (
+                _host(k.counts)
+                if k.counts is not None
+                else np.full((k.n, k.n), float(len(k.snp_names)))
+            )
+            grm_io.write_grm(prefix, _host(k.matrix), counts, k.individual_keys, k.snp_names)
+
+        write(kern, a.out)
+        mr = kern.keep_with_relatedness_outside(a.mostr_lower_thr, a.mostr_upper_thr)
+        write(mr, a.out + ".mostRelated")
+        self.log.message(
+            f"GRM stored at [ {a.out}.grm.* ]; most-related subset "
+            f"({mr.n}/{kern.n} individuals) at "
+            f"[ {a.out}.mostRelated.grm.* ]"
+        )
+        for cutoff in a.cutoff_thrs or []:
+            pruned = kern.prune(cutoff)
+            dropped = kern.n - pruned.n
+            self.log.message(
+                f"{dropped} individuals have been filtered from {kern.n} "
+                f"when cutoff is {cutoff}. ({dropped / kern.n})"
+            )
+        return kern
+
+    def make_filter_matrix(self):
+        """--filter-matrix (makeFilterLabeledMatrix): subset a stored
+        LabeledMatrix by row/column label files."""
+        a = self.args
+        if not (a.imatrix and a.row_labels and a.col_labels):
+            raise ValueError(
+                "--imatrix, --row-labels and --col-labels are required with "
+                "--filter-matrix (options.cpp:1609)"
+            )
+        if a.imatrix == a.out:
+            raise ValueError("input and output prefixes are the same")
+        lm = LabeledMatrix.load(a.imatrix)
+        with open(a.row_labels) as fh:
+            rows = [l.strip() for l in fh if l.strip()]
+        with open(a.col_labels) as fh:
+            cols = [l.strip() for l in fh if l.strip()]
+        lm.filter(keep_rows=rows, keep_cols=cols).save(a.out)
+        self.log.message(f"filtered matrix stored at [ {a.out}.* ]")
+
+    def make_add_grms(self):
+        """--add-grms: sum GRMs from --grm-list via the denormalize/add
+        kernel algebra (addGRMs, kernel.cpp:1705).  The sum runs in
+        float64 on the device: its result is written as float64, and
+        raw = K .* N in float32 would round it."""
+        a = self.args
+        if not a.grm_list:
+            raise ValueError("--add-grms requires --grm-list")
+        with open(a.grm_list) as fh:
+            prefixes = [l.strip() for l in fh if l.strip()]
+        put = lambda x: torch.as_tensor(x).to(device=self.device, dtype=torch.float64)
+        kernels = []
+        for prefix in prefixes:
+            loaded = grm_io.read_grm(prefix)
+            kernels.append(
+                Kernel(
+                    name="GRM",
+                    type=KernelType.GRM,
+                    individual_keys=loaded["individual_keys"],
+                    snp_names=loaded["snp_names"],
+                    matrix=put(loaded["kernel"]),
+                    counts=put(loaded["counts"]),
+                )
+            )
+        common = kernels[0].individual_keys
+        for k in kernels[1:]:
+            common = intersection_keeping_order(common, k.individual_keys)
+        total = kernels[0].filter_individuals(common)
+        for k in kernels[1:]:
+            total = total.add(k.filter_individuals(common))
+        self._write_grm(total, a.out)
+        self.log.message(f"summed GRM stored at [ {a.out}.grm.* ]")
 
     @timers.timed("WriteGRM")
     def _write_grm_diagonalized(self, diag: Kernel):
@@ -326,7 +442,7 @@ class Analysis:
         ve = null.result.variances[vnames.index("Var(E)")]
         return diag.eigenvalues, diag.eigenvectors, (vg, ve)
 
-    def _write_gwas(self, res, data: PlinkData, covar, common, row_var=None):
+    def _write_gwas(self, res, data: Union[PlinkData, BgenData], covar, common, row_var=None):
         """Write .gwas.snps / .gwas.mean / .gwas.discrete /
         .gwas.quantitative (storeResults, gwas.cpp:1036-1154).
 
@@ -411,14 +527,14 @@ class Analysis:
     def run(self):
         dispatch = {
             "makeGRM": self.make_grm,
+            "makeGRMMostRelated": self.make_grm_most_related,
             "GWAS": self.make_gwas,
+            "filterMatrix": self.make_filter_matrix,
+            "addGRMs": self.make_add_grms,
         }
         not_ported = {
             "REML": "item 2",
             "PCA": "item 3",
-            "makeGRMMostRelated": "item 4",
-            "filterMatrix": "item 4",
-            "addGRMs": "item 4",
             "bivarREML": "item 5",
             "multiREML": "item 5",
             "recursiveGWAS": "item 6",

@@ -2,24 +2,47 @@
 
 The system has no learned weights: its state is data — the packed GRM
 tiles of a streaming build, a Kernel's matrix and counts or its
-eigenpairs, and fitted REML variances.  Each function here takes that
-state as numpy arrays (what `np.asarray` gives for a jax.Array, or what
-the JAX package writes to disk) and returns the port's object on
-`device`, so a run can start mid-pipeline from state the JAX package
-produced.  Nothing here imports the JAX package.
+eigenpairs, fitted REML variances — and the genotype data itself.  Each
+function here takes that state as numpy arrays (what `np.asarray` gives
+for a jax.Array, or what the JAX package writes to disk) and returns the
+port's object (on `device`, where it holds tensors), so a run can start
+mid-pipeline from state the JAX package produced.  Nothing here imports
+the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from dissect_tpu_torch.io.bed import IndividualInfo, SnpInfo
+from dissect_tpu_torch.io.bgen import BgenData
 from dissect_tpu_torch.linalg.grm_kernels import packed_shape
 from dissect_tpu_torch.linalg.syrk import grm_accumulator
 from dissect_tpu_torch.model.kernels import Kernel, KernelType
 from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE
+
+
+def bgen_data_from_state(snps: Sequence, individuals: Sequence, dosages) -> BgenData:
+    """The port's BgenData from a JAX BgenData's fields: its SnpInfo and
+    IndividualInfo records (any objects with those attribute names) and
+    its (M, N) dosages as a numpy array, kept as float32 with NaN =
+    missing."""
+    snp_fields = [f.name for f in dataclasses.fields(SnpInfo)]
+    ind_fields = [f.name for f in dataclasses.fields(IndividualInfo)]
+    dosages = np.asarray(dosages, dtype=np.float32)
+    if dosages.shape != (len(snps), len(individuals)):
+        raise ValueError(
+            f"dosages have shape {dosages.shape}, expected ({len(snps)}, {len(individuals)})"
+        )
+    return BgenData(
+        snps=[SnpInfo(**{f: getattr(s, f) for f in snp_fields}) for s in snps],
+        individuals=[IndividualInfo(**{f: getattr(i, f) for f in ind_fields}) for i in individuals],
+        dosages=dosages,
+    )
 
 
 def grm_accumulator_from_packed(kernel_tiles, counts_tiles, n: int, block_n: int,

@@ -10,7 +10,7 @@ card, LAPACK on the CPU).  The JAX package's routing of mid-size
 accelerator eighs to host LAPACK (dissect_tpu/linalg/eigen.py:29-48)
 worked around TPU compile sizes and has no counterpart here.  Note the
 JAX CLI diagonalizes the float32 GRM in float32; the port's float64
-eigenpairs are the more exact ones (ROADMAP.md, queue 3).
+eigenpairs are the more exact ones (ROADMAP.md, deliberate departures).
 """
 
 from __future__ import annotations

@@ -1,17 +1,18 @@
-"""K1 — the fused int8-standardize + triangle-only dual syrk — and the
-packed lower-triangle tile layout it writes.
+"""K1 — the fused int8-standardize + triangle-only dual syrk — K2 — the
+triangle-only syrk of a float operand — and the packed lower-triangle
+tile layout both write.
 
 Port of dissect_tpu/linalg/pallas_syrk.py (`grm_fused_triangle_update`,
-`_pair_maps`, `packed_shape`, `unpack_triangle`).  The packed layout is
-kept at the boundary: (T*BN, BN) float32 buffers, tile t = output tile
-(imap[t], jmap[t]) in the order (0,0), (1,0), (1,1), (2,0), ..., so the
-port's buffers compare tile for tile with the JAX kernel's at the same
-`block_n`.  BN is a layout unit here; the CUDA kernel
-(csrc/grm_syrk.cu) chooses its own 128 x 128 work tiles inside it.
+`syrk_triangle_packed`, `syrk_triangle`, `_pair_maps`, `packed_shape`,
+`unpack_triangle`).  The packed layout is kept at the boundary:
+(T*BN, BN) float32 buffers, tile t = output tile (imap[t], jmap[t]) in
+the order (0,0), (1,0), (1,1), (2,0), ..., so the port's buffers compare
+tile for tile with the JAX kernels' at the same `block_n`.  BN is a
+layout unit here; the CUDA kernels (csrc/grm_syrk.cu, csrc/syrk_packed.cu)
+choose their own 128 x 128 work tiles inside it.
 
-`grm_fused_triangle_update` launches the CUDA kernel for tensors on the
-card and runs `plain_grm_fused_triangle_update` only for tensors on the
-CPU.
+Each wrapper launches its CUDA kernel for tensors on the card and runs
+its plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -131,9 +132,9 @@ def grm_fused_triangle_update(
         raise ValueError(f"block_n {block_n} too large for the kernel's grid")
     if m == 0:
         return kernel_tiles, counts_tiles
-    lib = _library()
+    kernel = _entry("grm_syrk", "grm_fused_triangle_update", 5, 4)
     with torch.cuda.device(device):
-        rc = lib.grm_fused_triangle_update(
+        rc = kernel(
             dosage.data_ptr(), mean.data_ptr(), inv_std.data_ptr(),
             kernel_tiles.data_ptr(), counts_tiles.data_ptr(),
             m, n, block_n, shape[0] // block_n, cuda_lib.stream_handle(device),
@@ -147,9 +148,57 @@ def grm_fused_triangle_update(
 grm_fused_triangle_update.launches = 0
 
 
-def _library():
-    lib = cuda_lib.load("grm_syrk")
-    fn = lib.grm_fused_triangle_update
+def plain_syrk_triangle_packed(z, block_n: int = 512):
+    """The plain version of K2: the full square Z^T Z in float32, its
+    lower tiles gathered into a fresh packed buffer."""
+    return pack_triangle(z.T @ z, block_n)
+
+
+def syrk_triangle_packed(z, block_n: int = 512):
+    """K2: the lower-triangle tiles of Z^T Z for an already standardized
+    float32 (m, N) operand, written into a FRESH packed (T*BN, BN) float32
+    buffer in `_pair_maps` order.  Diagonal tiles hold the whole BN x BN
+    block, and entries whose row or column is past N are 0, so the buffer
+    equals dissect_tpu's `syrk_triangle_packed` tile for tile.
+
+    On the card this launches csrc/syrk_packed.cu (or raises); only
+    tensors on the CPU take the plain version."""
+    if z.device.type == "cpu":
+        return plain_syrk_triangle_packed(z, block_n)
+    if z.device.type != "cuda":
+        raise ValueError(f"no syrk_triangle_packed kernel for device {z.device}")
+    if z.dim() != 2:
+        raise ValueError("z must be (m, n)")
+    m, n = z.shape
+    _check("z", z, torch.float32, (m, n), z.device)
+    if (-(-block_n // 128)) ** 2 > 65535:
+        raise ValueError(f"block_n {block_n} too large for the kernel's grid")
+    shape = packed_shape(n, block_n)
+    out = torch.empty(shape, dtype=torch.float32, device=z.device)
+    kernel = _entry("syrk_packed", "syrk_triangle_packed", 2, 4)
+    with torch.cuda.device(z.device):
+        rc = kernel(
+            z.data_ptr(), out.data_ptr(), m, n, block_n, shape[0] // block_n,
+            cuda_lib.stream_handle(z.device),
+        )
+    if rc != 0:
+        raise RuntimeError(f"syrk_triangle_packed: CUDA error {rc}")
+    syrk_triangle_packed.launches += 1
+    return out
+
+
+syrk_triangle_packed.launches = 0
+
+
+def syrk_triangle(z, block_n: int = 512):
+    """Full symmetric Z^T Z (float32) computing only lower-triangle tiles."""
+    return unpack_triangle(syrk_triangle_packed(z, block_n), z.shape[1], block_n)
+
+
+def _entry(library: str, function: str, n_pointers: int, n_ints: int):
+    """The C entry point `function` of csrc/<library>.cu, typed: its
+    pointers, then its ints, then the stream; it returns the CUDA error."""
+    fn = getattr(cuda_lib.load(library), function)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    return lib
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    return fn

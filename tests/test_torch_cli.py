@@ -78,7 +78,7 @@ def test_grm_diag_is_the_exact_eigendecomposition(runs):
 
 def test_grm_diag_matches_golden_to_float32_eigensolver_accuracy(runs):
     """golden.diag.grm.diag was written by the JAX CLI, which
-    diagonalizes the float32 GRM in float32 (ROADMAP.md queue 3): its
+    diagonalizes the float32 GRM in float32 (ROADMAP.md, deliberate departures): its
     eigenvalues carry a float32 solver's error, |dlam| <= c eps32 |K|,
     and its eigenvectors that error over the eigenvalue gap.  The port's
     float64 pairs agree with it within twice those bounds."""
@@ -119,7 +119,7 @@ def test_options_parse_like_jax(argv):
     (["--pca", "--grm", "g"], "item 3"),
     (["--bivar-reml", "--grm", "g"], "item 5"),
     (["--gwas", "--groups", "grp"] + BASE, "item 6"),
-    (["--make-grm", "--bgen", "b.bgen"], "item 4"),
+    (["--mpresiduals"] + BASE, "item 7"),
 ])
 def test_unported_analyses_name_their_roadmap_item(tmp_path, monkeypatch, argv, item):
     monkeypatch.setenv("DISSECT_TPU_TORCH_DEVICE", "cpu")

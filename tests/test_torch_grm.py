@@ -179,7 +179,8 @@ def test_grm_from_plink_rejects_monomorphic(tmp_path, rng):
 
 def test_k1_wrapper_refuses_other_devices(chunked):
     """Only a CPU tensor takes the plain version: any other device gets
-    the kernel or an error, never a silent fallback."""
+    the kernel or an error, never a silent fallback — for K1 and for K2,
+    the float (imputed) GRM kernel."""
     d, mean, inv_std = chunked
     shape = grm_kernels.packed_shape(N, 16)
     meta = lambda a: torch.as_tensor(a).to("meta")
@@ -188,5 +189,8 @@ def test_k1_wrapper_refuses_other_devices(chunked):
             meta(d), meta(mean), meta(inv_std),
             torch.zeros(shape, device="meta"), torch.zeros(shape, device="meta"), block_n=16,
         )
-    with pytest.raises(NotImplementedError, match="K2"):
-        grm_accumulator(N, device="cpu").update(d.astype(np.float32), mean, inv_std)
+    with pytest.raises(ValueError, match="no syrk_triangle_packed kernel"):
+        grm_kernels.syrk_triangle_packed(meta(d.astype(np.float32)), block_n=16)
+    launches = (grm_kernels.grm_fused_triangle_update.launches,
+                grm_kernels.syrk_triangle_packed.launches)
+    assert launches == (0, 0), "a refused call must not count as a launch"

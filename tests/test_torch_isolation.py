@@ -1,15 +1,65 @@
 """The port stands alone: no module of dissect_tpu_torch, nor
 chip_smoke.py, loads JAX or anything of the JAX package, and the CLI
-never falls back to the CPU on its own.  Each check runs in a fresh
-interpreter, since this test process has JAX loaded already."""
+never falls back to the CPU on its own.  The import checks run in a
+fresh interpreter, since this test process has JAX loaded already; a
+static scan of every import statement, nested ones included, catches
+what importing a module does not run (imports inside functions)."""
 
+import ast
 import os
 import pathlib
 import subprocess
 import sys
 import textwrap
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "dissect_tpu_torch").rglob("*.py")
+) + ["chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "dissect_tpu")
+
+
+def forbidden_imports(source: str, filename: str = "<source>"):
+    """(line, module) of every import statement in `source`, at any
+    depth, that names jax, jaxlib or dissect_tpu (not dissect_tpu_torch)."""
+    found = []
+    for node in ast.walk(ast.parse(source, filename)):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        for name in names:
+            if name.split(".")[0] in FORBIDDEN:
+                found.append((node.lineno, name))
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES)
+def test_no_import_statement_names_jax(path):
+    assert forbidden_imports((REPO / path).read_text(), path) == []
+
+
+def test_import_scan_sees_nested_imports():
+    source = textwrap.dedent(
+        """
+        import dissect_tpu_torch.io.bgen
+        from dissect_tpu_torch import convert
+        def phase():
+            from dissect_tpu.io import bgen
+            if True:
+                import jax.numpy as jnp, numpy
+            class C:
+                def f(self):
+                    import jaxlib
+                    from jax import lax
+        """
+    )
+    assert [name for _, name in forbidden_imports(source)] == [
+        "dissect_tpu.io", "jax.numpy", "jaxlib", "jax"]
 
 
 def _env(**extra):

@@ -7,9 +7,11 @@ Phases, each of which stops the script on failure:
   1. build     compile every hand-written kernel under dissect_tpu_torch/csrc/
                (one nvcc per source, all started together);
   2. kernels   hold each kernel (K1, K2, K3) against its plain PyTorch version
-               on the card, at a ragged shape and at the shape the main paths
+               on the card, at ragged shapes and at the shape the main paths
                give it, and time kernel, plain version and (where one exists)
-               the single PyTorch call that computes the same function;
+               the single PyTorch call that computes the same function, with
+               each kernel's bound (bytes at the memory rate, float32 flops
+               and int8 tensor-core operations each at its pipe's rate);
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
                and BGEN input, on the card, against the stored golden files;
   4. main      the PLINK path: a synthetic PLINK cohort at the size users run
@@ -26,7 +28,10 @@ Phases, each of which stops the script on failure:
                off the hard calls, 1% missing, the same covariate and phenotype
                recipe, then `--make-grm --bgen` and `--gwas --grm --bgen`
                through main(), launch counters zeroed just before and read just
-               after, and the same science checks.
+               after, and the same science checks;
+  7. k3_retry  K3 held against its plain version and timed at each path's
+               retry shape (the other M than all SNPs at which the path
+               launched K3, as K3's launch counter by M recorded it).
 
 The last lines of standard output are the `kernels` JSON line, the card's
 name and power limit as nvidia-smi reports them, and the result line
@@ -58,9 +63,14 @@ GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's and K2's row count on the main 
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
 # One NVIDIA H100 SXM (NVIDIA data sheet, dense rates): float32 outside the
-# tensor cores and HBM bandwidth, at the full 700 W power limit.
+# tensor cores, int8 on the tensor cores, and HBM bandwidth, at the full
+# 700 W power limit.
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+# A held timing first spins the stream this many clock cycles, about
+# 0.1 s at the H100's 1.98 GHz boost clock.
+HOLD_CYCLES = 200_000_000
 
 # Tolerances of the kernel-vs-plain comparisons, relative to the largest
 # magnitude of the plain result: both sides sum the same float32 terms in
@@ -71,6 +81,10 @@ PEAK_BYTES_PER_S = 3.35e12
 K1_REL_TOL = 1e-5
 K2_REL_TOL = 1e-5
 K3_REL_TOL = 1e-4
+# K3's lam-weighted trace column (sum_k w1 lam, a positive sum over all n
+# entries) against float64: the refit's gradient subtracts two such sums
+# of about 1e4 and is held to 1e-2, so they need about 1e-6 relative.
+K3_TRACE_RTOL = 1e-6
 # The 512-SNP refit through K3 vs through its plain version: 15 float32
 # Fisher steps on moments that differ by rounding; the bound JAX's tests
 # use between their two moment paths (tests/test_gwas_covariance.py).
@@ -91,24 +105,63 @@ def log(*parts):
 
 
 # ------------------------------------------------------------------ timing --
-def time_ms(fn, iters=10, warmup=2):
-    """Mean milliseconds of fn() on the card, by CUDA events."""
+def time_ms(fn, iters=10, warmup=2, held=False):
+    """Mean milliseconds of fn() on the card, by CUDA events.
+
+    held: the stream first spins HOLD_CYCLES, so the host has queued every
+    call before the first one runs, and the reading is the card's time
+    alone, without the host's gaps between calls that a launch of a tenth
+    of a millisecond would otherwise show.  Fails if the host was not done
+    queueing when the spin ended."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if held:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     stop.record()
+    if held:
+        check(not start.query(), "the timed calls started before the host had queued them all")
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes, n_flops):
+def bound_ms(n_bytes, fp32_flops, int8_ops=0):
+    """The least time the card could take: the largest of the bytes at the
+    memory rate and each pipe's operations at its peak rate."""
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_FP32_FLOPS * 1e3
+    t_ops = max(fp32_flops / PEAK_FP32_FLOPS, int8_ops / PEAK_INT8_OPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def k1_bound(m, n, block_n):
+    """K1: Z^T Z on the float32 pipes and the exact 0/1 counts O^T O on the
+    int8 tensor cores, each over the lower triangle's entries; the int8
+    chunk read, both packed buffers read and written."""
+    from dissect_tpu_torch.linalg.grm_kernels import packed_shape
+
+    entries = _needed_entries(n, block_n)
+    rows, cols = packed_shape(n, block_n)
+    n_bytes = m * n + 2 * m * 4 + 2 * 2 * rows * cols * 4
+    return bound_ms(n_bytes, 2 * m * entries, 2 * m * entries)
+
+
+def k2_bound(m, n, block_n):
+    """K2: Z^T Z in float32 over the lower triangle; z read, tiles written."""
+    from dissect_tpu_torch.linalg.grm_kernels import packed_shape
+
+    rows, cols = packed_shape(n, block_n)
+    return bound_ms(4 * m * n + 4 * rows * cols, 2 * m * _needed_entries(n, block_n))
+
+
+def k3_bound(m, n, q, k_feats):
+    """K3: one FMA per output column per element of g, all in float32."""
+    total = 2 * k_feats + 3 * q + 3
+    n_bytes = 4 * (m * n + 2 * m + n + n * q + n * k_feats + m * total)
+    return bound_ms(n_bytes, 2 * total * m * n)
 
 
 # ----------------------------------------------------------------- phase 1 --
@@ -119,7 +172,8 @@ def phase_build():
     for name, info in report.items():
         log(f"build {name}: {info['seconds']:.1f}s -> {info['path']}")
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            # each kernel's (mangled) name, then its registers and spills
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
     return report
 
@@ -147,10 +201,8 @@ def _needed_entries(n, block_n):
     """GRM entries one K1 call must compute: the whole of each off-diagonal
     tile, and the lower triangle of each diagonal tile (its strict upper
     half is the transpose).  Sums to n(n+1)/2."""
-    from dissect_tpu_torch.linalg.grm_kernels import _pair_maps
-
     nt = -(-n // block_n)
-    _, imap, jmap = _pair_maps(nt)
+    imap, jmap = np.tril_indices(nt)
     rows = np.minimum(block_n, n - imap * block_n)
     cols = np.minimum(block_n, n - jmap * block_n)
     entries = np.where(imap == jmap, rows * (rows + 1) // 2, rows * cols)
@@ -189,11 +241,7 @@ def compare_k1(gen, m, n, block_n, device, timed):
         d, mean, inv_std, kb, cb, block_n=block_n), iters=5)
     z, _ = standardize_chunk(d, mean, inv_std, torch.float32)
     library_ms = time_ms(lambda: torch.mm(z.T, z), iters=5)
-    entries = _needed_entries(n, block_n)
-    tiles_bytes = shape[0] * shape[1] * 4
-    n_bytes = m * n + 2 * m * 4 + 2 * 2 * tiles_bytes  # dosage, mean/istd, 2 buffers read+written
-    n_flops = 2 * 2 * m * entries  # two products, one FMA each
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    b_ms, b_by = k1_bound(m, n, block_n)
     return {
         "name": "grm_fused_triangle_update",
         "route": "cuda",
@@ -261,10 +309,7 @@ def compare_k2(gen, m, n, block_n, device, timed):
     ms = time_ms(lambda: gk.syrk_triangle_packed(z, block_n))
     plain_ms = time_ms(lambda: gk.plain_syrk_triangle_packed(z, block_n), iters=5)
     library_ms = time_ms(lambda: torch.mm(z.T, z), iters=5)
-    shape = gk.packed_shape(n, block_n)
-    n_bytes = 4 * m * n + 4 * shape[0] * shape[1]  # z read, packed tiles written
-    n_flops = 2 * m * _needed_entries(n, block_n)
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    b_ms, b_by = k2_bound(m, n, block_n)
     return {
         "name": "syrk_triangle_packed",
         "route": "cuda",
@@ -291,7 +336,11 @@ def _k3_inputs(gen, m, n, q, device):
     return g, thetas, lam, s, feats
 
 
-def compare_k3(gen, m, n, q, device, timed):
+def compare_k3(gen, m, n, q, device, timed, iters=10):
+    """K3 against its plain version.  Timed: `ms` is the kernel's launch
+    on inputs the wrapper has already checked and packed, held (see
+    time_ms) over `iters` calls; `wrapper_ms` is the whole wrapper call,
+    host work and gaps included, as a caller pays it."""
     from dissect_tpu_torch.gwas import moments_kernels as mk
 
     g, thetas, lam, s, feats = _k3_inputs(gen, m, n, q, device)
@@ -309,18 +358,26 @@ def compare_k3(gen, m, n, q, device, timed):
     check(math.isfinite(rel) and rel <= K3_REL_TOL, "K3 disagrees with its plain version")
     if not timed:
         return None
-    ms = time_ms(lambda: mk.fused_refit_moments(g, thetas, lam, s, feats))
+    col = 2 * (q * (q + 1) // 2)  # m1's lam column (refit_features layout)
+    exact = mk.plain_refit_moments(*(a.double() for a in (g, thetas, lam, s, feats)))[:, col]
+    trace_err = float(((out[:, col].double() - exact).abs() / exact.abs()).max())
+    plain_err = float(((ref[:, col].double() - exact).abs() / exact.abs()).max())
+    log(f"K3 m={m}: trace column vs float64, worst relative error {trace_err:.2e} "
+        f"(plain float32 {plain_err:.2e}, tol {K3_TRACE_RTOL:g})")
+    check(trace_err <= K3_TRACE_RTOL, "K3's trace sums are not accurate enough for the refit")
+    ms = time_ms(mk.prepare_refit_moments(g, thetas, lam, s, feats), iters=iters, held=True)
+    wrapper_ms = time_ms(lambda: mk.fused_refit_moments(g, thetas, lam, s, feats), iters=iters)
     plain_ms = time_ms(lambda: mk.plain_refit_moments(g, thetas, lam, s, feats), iters=5)
-    n_bytes = 4 * (m * n + 2 * m + n + n * q + n * k_feats + m * total)
-    n_flops = 2 * total * m * n  # one FMA per output column per element of g
-    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    b_ms, b_by = k3_bound(m, n, q, k_feats)
     return {
         "name": "fused_refit_moments",
         "route": "cuda",
         "source": "dissect_tpu_torch/csrc/refit_moments.cu",
         "replaces": "dissect_tpu/gwas/pallas_moments.py:81",
         "max_abs_err": err,
+        "trace_rel_err": trace_err,
         "ms": ms,
+        "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -332,15 +389,38 @@ def compare_k3(gen, m, n, q, device, timed):
 def phase_kernels(device):
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
+    # K1: rows and columns not 16-byte aligned (byte staging), aligned
+    # with ragged tiles and stage (cp.async staging), the last chunk of the
+    # main paths (848 rows), and the main shape
     compare_k1(gen, GRM_CHUNK, 1000, BLOCK_N, device, timed=False)
     compare_k1(gen, 333, 1000, 200, device, timed=False)
+    compare_k1(gen, 100, 1008, 256, device, timed=False)
+    compare_k1(gen, N_SNPS % GRM_CHUNK, N_INDIVIDUALS, BLOCK_N, device, timed=False)
     k1 = compare_k1(gen, GRM_CHUNK, N_INDIVIDUALS, BLOCK_N, device, timed=True)
     compare_k2(gen, 333, 1000, 200, device, timed=False)
     k2 = compare_k2(gen, GRM_CHUNK, N_INDIVIDUALS, BLOCK_N, device, timed=True)
+    # K3: one row, ragged shapes (split n, several column chunks), the main shape
+    compare_k3(gen, 1, 1000, 4, device, timed=False)
     compare_k3(gen, 777, 1000, 4, device, timed=False)
+    compare_k3(gen, 777, 1000, 9, device, timed=False)
     compare_k3(gen, 300, 1000, 9, device, timed=False)
     k3 = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 4, device, timed=True)
     return [k1, k2, k3]
+
+
+def k3_at_retry(device, retry_rows):
+    """K3 checked and timed at each path's retry shape (its rows, n =
+    10,000, q = 4), after the paths: these launches do not count.  A
+    launch takes about a tenth of a millisecond here, so the held timing
+    runs 200 of them."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    timed = {}
+    for tag, rows in retry_rows.items():
+        if rows:
+            entry = compare_k3(gen, rows, N_INDIVIDUALS, 4, device, timed=True, iters=200)
+            timed[tag] = {key: entry[key] for key in ("ms", "wrapper_ms", "shape", "max_abs_err")}
+    return timed
 
 
 # ----------------------------------------------------------------- phase 3 --
@@ -460,15 +540,21 @@ def write_cohort(workdir, device):
 def drive_path(tag, workdir, genotype_args, counters, expect):
     """`--make-grm` then `--gwas --grm` through the CLI's main(), with
     every launch counter zeroed just before and read just after; fails if
-    a kernel in `expect` was not launched.  Returns (launches, seconds),
-    the seconds of each step and of its dispatcher phases."""
+    a kernel in `expect` was not launched.  Returns (launches, seconds,
+    k3_by_rows): the seconds of each step and of its dispatcher phases,
+    and K3's launches by row count M, counted where K3 launches.  Those
+    must be the refit's: a first pass over all SNPs and at most one retry
+    on fewer rows with twice the Fisher steps, so 2 s + 1 launches at the
+    retry's M against s + 1 at M = all SNPs."""
     from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.runtime.timers import timers
 
     args = genotype_args + ["--pheno", str(workdir / "pheno.txt"),
                             "--qcovar", str(workdir / "qcovar.txt")]
+    k3 = counters["fused_refit_moments"]
     for fn in counters.values():
         fn.launches = 0
+    k3.launches_by_rows.clear()
     seconds = {}
     t0 = time.monotonic()
     main(["--make-grm"] + args + ["--out", str(workdir / "grm")])
@@ -479,10 +565,20 @@ def drive_path(tag, workdir, genotype_args, counters, expect):
     seconds[f"{tag}gwas_grm"] = time.monotonic() - t0
     seconds.update({f"{tag}gwas_grm.{k}": v for k, v in timers.elapsed.items()})
     launches = {name: fn.launches for name, fn in counters.items()}
+    k3_by_rows = dict(sorted(k3.launches_by_rows.items(), reverse=True))
     log(f"{tag or 'plink_'}path launches: " + json.dumps(launches))
+    log(f"{tag or 'plink_'}path K3 launches by M: " + json.dumps(k3_by_rows))
     for name in expect:
         check(launches[name] > 0, f"kernel {name} was not launched on the {tag or 'plink_'}path")
-    return launches, seconds
+    check(sum(k3_by_rows.values()) == launches["fused_refit_moments"],
+          "K3's launches by M do not add up to its launches")
+    retry = {rows: count for rows, count in k3_by_rows.items() if rows != N_SNPS}
+    check(len(retry) <= 1 and all(rows < N_SNPS for rows in retry),
+          f"K3 ran at M = {list(k3_by_rows)}: not one pass over all SNPs and one retry")
+    for count in retry.values():
+        check(count == 2 * k3_by_rows.get(N_SNPS, 0) - 1,
+              f"K3 launches by M {k3_by_rows}: the retry did not run twice the Fisher steps")
+    return launches, seconds, k3_by_rows
 
 
 # ----------------------------------------------------------------- phase 5 --
@@ -668,7 +764,7 @@ def main():
         plink_args, causal = write_cohort(plink_dir, device)
         seconds["write_cohort"] = time.monotonic() - t0
         torch.cuda.reset_peak_memory_stats(device)
-        plink_launches, path_seconds = drive_path(
+        plink_launches, path_seconds, plink_k3 = drive_path(
             "", plink_dir, plink_args, counters,
             expect=("grm_fused_triangle_update", "fused_refit_moments"))
         seconds.update(path_seconds)
@@ -682,7 +778,7 @@ def main():
         bgen_args, causal = write_bgen_cohort(bgen_dir, device)
         seconds["write_bgen_cohort"] = time.monotonic() - t0
         torch.cuda.reset_peak_memory_stats(device)
-        bgen_launches, path_seconds = drive_path(
+        bgen_launches, path_seconds, bgen_k3 = drive_path(
             "bgen_", bgen_dir, bgen_args, counters,
             expect=("syrk_triangle_packed", "fused_refit_moments"))
         seconds.update(path_seconds)
@@ -691,6 +787,13 @@ def main():
         _, summary["bgen"] = science_checks(bgen_dir, causal, BGEN_SNPS)
         seconds["bgen_checks"] = time.monotonic() - t0
         seconds.update(time_bgen_host(bgen_args[1]))
+
+        t0 = time.monotonic()
+        k3_by_rows = {"plink": plink_k3, "bgen": bgen_k3}
+        retry_timed = k3_at_retry(device, {
+            tag: max((rows for rows in by_rows if rows != N_SNPS), default=0)
+            for tag, by_rows in k3_by_rows.items()})
+        seconds["k3_retry"] = time.monotonic() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -698,6 +801,14 @@ def main():
         by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+        if entry["name"] == "fused_refit_moments":
+            entry["launches_by_shape"] = {
+                tag: {f"M={rows}": count for rows, count in by_rows.items()}
+                for tag, by_rows in k3_by_rows.items()}
+            first = retry_timed.get("plink") or retry_timed.get("bgen")
+            entry["retry_ms"] = first["ms"] if first else None
+            entry["retry_shape"] = first["shape"] if first else None
+            entry["retry_by_path"] = retry_timed
     smi = nvidia_smi_line()
     log("phase seconds: " + json.dumps({k: round(v, 3) for k, v in seconds.items()}))
     log("main paths: " + json.dumps({**summary, "peak_device_gb": peak_gb,

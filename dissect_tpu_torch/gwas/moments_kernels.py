@@ -20,6 +20,7 @@ runs `plain_refit_moments` only for tensors on the CPU.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -74,6 +75,56 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+# K3's launch geometry (csrc/refit_moments.cu): a block owns 64 SNP rows
+# and one column chunk (24 feature columns, 4 s columns) and walks its n
+# range 16 entries per stage.
+K3_ROWS_PER_BLOCK = 64
+K3_ENTRIES_PER_STAGE = 16
+K3_FEATURE_COLUMNS = 24
+K3_S_COLUMNS = 4
+K3_PACKED_WIDTH = 32  # feats | s | lam | 3 zeros
+# the n axis is split only down to this many entries per block
+K3_MIN_SPLIT_ENTRIES = 128
+
+
+def refit_geometry(m: int, n: int, q: int, k_feats: int, sm_count: int):
+    """K3's launch geometry: (row_blocks, chunks, splits, n_per_split).
+
+    row_blocks x chunks blocks cover the rows and the column chunks.  When
+    they would not fill the card (the refit's retry on a few hundred
+    SNPs), the n axis is split into `splits` ranges of n_per_split
+    entries (a multiple of the stage), enough for about two blocks per SM;
+    the kernel then sums the splits in a second, fixed-order pass."""
+    row_blocks = -(-m // K3_ROWS_PER_BLOCK)
+    chunks = max(1, -(-k_feats // K3_FEATURE_COLUMNS), -(-q // K3_S_COLUMNS))
+    blocks = row_blocks * chunks
+    splits = 1
+    if blocks < sm_count:
+        splits = max(1, min(-(-2 * sm_count // blocks), -(-n // K3_MIN_SPLIT_ENTRIES)))
+    per = -(-n // splits)
+    per = -(-per // K3_ENTRIES_PER_STAGE) * K3_ENTRIES_PER_STAGE
+    splits = -(-n // per)
+    return row_blocks, chunks, splits, per
+
+
+def pack_shared_columns(lam, s, feats):
+    """The kernel's shared columns, (chunks, n, 32) in s's dtype: for
+    column chunk c, row k = [feats[k, 24c:24c+24] | s[k, 4c:4c+4] | lam_k
+    | 0 0 0], zero-padded past K and q."""
+    n, q = s.shape
+    k_feats = feats.shape[1]
+    chunks = max(1, -(-k_feats // K3_FEATURE_COLUMNS), -(-q // K3_S_COLUMNS))
+    y = torch.zeros((chunks, n, K3_PACKED_WIDTH), dtype=s.dtype, device=s.device)
+    fc, qc = K3_FEATURE_COLUMNS, K3_S_COLUMNS
+    y[:, :, fc + qc] = lam
+    for c in range(chunks):
+        fk = feats[:, c * fc:(c + 1) * fc]
+        sq = s[:, c * qc:(c + 1) * qc]
+        y[c, :, :fk.shape[1]] = fk
+        y[c, :, fc:fc + sq.shape[1]] = sq
+    return y
+
+
 def fused_refit_moments(g, thetas, lam, s, feats):
     """All nine ML-refit moments in one pass over g.
 
@@ -85,6 +136,16 @@ def fused_refit_moments(g, thetas, lam, s, feats):
     on the CPU take the plain version."""
     if g.device.type == "cpu":
         return plain_refit_moments(g, thetas, lam, s, feats)
+    return prepare_refit_moments(g, thetas, lam, s, feats)()
+
+
+def prepare_refit_moments(g, thetas, lam, s, feats):
+    """`fused_refit_moments` on the card, in two steps: checks the
+    inputs, packs the shared columns, fixes the launch geometry and
+    allocates the output here, and returns a callable that launches the
+    kernel and returns the moments.  Calling it again recomputes them
+    from the same inputs, so the launch can be timed apart from the
+    preparation."""
     if g.device.type != "cuda":
         raise ValueError(f"no moments kernel for device {g.device}")
     if g.dim() != 2 or s.dim() != 2 or feats.dim() != 2:
@@ -99,30 +160,40 @@ def fused_refit_moments(g, thetas, lam, s, feats):
     _check("feats", feats, (n, k_feats), device)
     total = moment_columns(q, k_feats)[-1]
     out = torch.empty((m, total), dtype=torch.float32, device=device)
-    if m == 0:
-        return out
+    if m == 0 or n == 0:
+        return lambda: out.zero_()  # nothing to launch
     lib = _library()
-    # the kernel stages the shared columns from column-major copies
-    # (coalesced loads); they are n x (q + K), small beside g
-    s_t, feats_t = s.T.contiguous(), feats.T.contiguous()
-    with torch.cuda.device(device):
-        rc = lib.fused_refit_moments(
-            g.data_ptr(), thetas.data_ptr(), lam.data_ptr(), s_t.data_ptr(),
-            feats_t.data_ptr(), out.data_ptr(), m, n, q, k_feats,
-            cuda_lib.stream_handle(device),
-        )
-    if rc != 0:
-        raise RuntimeError(f"fused_refit_moments: CUDA error {rc}")
-    fused_refit_moments.launches += 1
-    return out
+    y = pack_shared_columns(lam, s, feats)
+    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
+    row_blocks, chunks, splits, per = refit_geometry(m, n, q, k_feats, sm_count)
+    partial = out if splits == 1 else torch.empty((splits, m, total), dtype=torch.float32,
+                                                   device=device)
+    vec = n % 4 == 0 and g.data_ptr() % 16 == 0
+
+    def launch():
+        with torch.cuda.device(device):
+            rc = lib.fused_refit_moments(
+                g.data_ptr(), thetas.data_ptr(), y.data_ptr(), out.data_ptr(), partial.data_ptr(),
+                m, n, q, k_feats, row_blocks, chunks, splits, per, int(vec),
+                cuda_lib.stream_handle(device),
+            )
+        if rc != 0:
+            raise RuntimeError(f"fused_refit_moments: CUDA error {rc}")
+        fused_refit_moments.launches += 1
+        fused_refit_moments.launches_by_rows[m] += 1
+        return out
+
+    return launch
 
 
+# launches of the kernel, in all and by row count M
 fused_refit_moments.launches = 0
+fused_refit_moments.launches_by_rows = Counter()
 
 
 def _library():
     lib = cuda_lib.load("refit_moments")
     fn = lib.fused_refit_moments
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     return lib

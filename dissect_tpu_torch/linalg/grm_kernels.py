@@ -103,6 +103,57 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+# K1's launch geometry (csrc/grm_syrk.cu): 128 x 128 output sub-tiles,
+# 32 SNP rows per shared-memory stage; a block computes one sub-tile of
+# one product.
+K1_SUB_TILE = 128
+K1_ROWS_PER_STAGE = 32
+K1_ROLE_Z, K1_ROLE_COUNTS = 0, 1
+
+
+def grm_stages(m: int) -> int:
+    """K1's shared-memory stages over an m-row chunk (the last one ragged,
+    its missing rows masked as missing genotypes)."""
+    return -(-m // K1_ROWS_PER_STAGE)
+
+
+def grm_work_items(n: int, block_n: int) -> np.ndarray:
+    """K1's work list: one int32 row (t, ti, tj, a0, b0, role, mirror, 0)
+    per thread block, i.e. per 128 x 128 sub-tile (local offsets a0, b0)
+    of packed tile t = (ti, tj) and per product (role: Z^T Z on the FMA
+    pipes, or the O^T O counts on the int8 tensor cores).  The Z^T Z items
+    come first: they are the long ones.
+
+    Sub-tiles wholly past n are left out: they would add zeros.  On a
+    diagonal tile only the sub-tiles with a0 >= b0 are listed; those with
+    a0 > b0 carry mirror = 1 and also add their transpose at (b0, a0), so
+    every entry of every packed tile is added exactly once per product."""
+    nt = -(-n // block_n)
+    sub = range(0, block_n, K1_SUB_TILE)
+    _, imap, jmap = _pair_maps(nt)
+    items = [
+        (t, ti, tj, a0, b0, role, int(ti == tj and a0 > b0), 0)
+        for role in (K1_ROLE_Z, K1_ROLE_COUNTS)
+        for t, (ti, tj) in enumerate(zip(imap.tolist(), jmap.tolist()))
+        for a0 in sub
+        for b0 in sub
+        if ti * block_n + a0 < n and tj * block_n + b0 < n and not (ti == tj and a0 < b0)
+    ]
+    return np.asarray(items, dtype=np.int32).reshape(-1, 8)
+
+
+_WORK_CACHE = {}
+
+
+def _work_on(device, n, block_n):
+    key = (str(device), n, block_n)
+    work = _WORK_CACHE.get(key)
+    if work is None:
+        work = torch.as_tensor(grm_work_items(n, block_n)).to(device)
+        _WORK_CACHE[key] = work
+    return work
+
+
 def grm_fused_triangle_update(
     dosage, mean, inv_std, kernel_tiles, counts_tiles, block_n: int = 512
 ):
@@ -128,16 +179,20 @@ def grm_fused_triangle_update(
     shape = packed_shape(n, block_n)
     _check("kernel_tiles", kernel_tiles, torch.float32, shape, device)
     _check("counts_tiles", counts_tiles, torch.float32, shape, device)
-    if (-(-block_n // 128)) ** 2 > 65535:
-        raise ValueError(f"block_n {block_n} too large for the kernel's grid")
     if m == 0:
         return kernel_tiles, counts_tiles
-    kernel = _entry("grm_syrk", "grm_fused_triangle_update", 5, 4)
+    kernel = _entry("grm_syrk", "grm_fused_triangle_update", 7, 6)
+    work = _work_on(device, n, block_n)
+    stages = grm_stages(m)
+    # the observed mask packed 32 rows to a word, one word per column
+    bits = torch.empty((stages, n), dtype=torch.int32, device=device)
+    vec = (n % 16 == 0 and block_n % 16 == 0 and dosage.data_ptr() % 16 == 0
+           and kernel_tiles.data_ptr() % 16 == 0)
     with torch.cuda.device(device):
         rc = kernel(
             dosage.data_ptr(), mean.data_ptr(), inv_std.data_ptr(),
-            kernel_tiles.data_ptr(), counts_tiles.data_ptr(),
-            m, n, block_n, shape[0] // block_n, cuda_lib.stream_handle(device),
+            kernel_tiles.data_ptr(), counts_tiles.data_ptr(), work.data_ptr(), bits.data_ptr(),
+            m, n, block_n, work.shape[0], stages, int(vec), cuda_lib.stream_handle(device),
         )
     if rc != 0:
         raise RuntimeError(f"grm_fused_triangle_update: CUDA error {rc}")

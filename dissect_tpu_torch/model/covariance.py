@@ -196,7 +196,16 @@ class CovarianceModel:
         ]
 
     # --- compilation ---------------------------------------------------------
-    def compile(self, device="cpu", dtype=torch.float64) -> "CompiledCovariance":
+    def compile(self, device=None, dtype=torch.float64) -> "CompiledCovariance":
+        """The model on `device`; by default on the one device its
+        matrices already live on (never moved to the host unasked)."""
+        if device is None:
+            devices = {m.device for m in self.matrices.values()}
+            if len(devices) != 1:
+                raise ValueError(
+                    f"matrices on {sorted(map(str, devices)) or 'no device'}: name the device"
+                )
+            (device,) = devices
         E, K = len(self.elements), self.n_variances
         powers = np.zeros((E, K), dtype=np.float64)
         factors = np.zeros((E,), dtype=np.float64)

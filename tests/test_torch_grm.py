@@ -194,3 +194,85 @@ def test_k1_wrapper_refuses_other_devices(chunked):
     launches = (grm_kernels.grm_fused_triangle_update.launches,
                 grm_kernels.syrk_triangle_packed.launches)
     assert launches == (0, 0), "a refused call must not count as a launch"
+
+
+def _k1_coverage(n, bn):
+    """How often K1's work list adds to each entry of each packed tile,
+    per product, mirrored items counted at their transposed entries."""
+    items = grm_kernels.grm_work_items(n, bn)
+    n_tiles = grm_kernels.packed_shape(n, bn)[0] // bn
+    ts = grm_kernels.K1_SUB_TILE
+    cover = np.zeros((2, n_tiles, bn, bn), dtype=np.int8)
+    for t, _, _, a0, b0, role, mirror, _ in items:
+        cover[role, t, a0:a0 + ts, b0:b0 + ts] += 1
+        if mirror:
+            cover[role, t, b0:b0 + ts, a0:a0 + ts] += 1
+    return items, cover
+
+
+@pytest.mark.parametrize("n, bn", [(10_000, 512), (1000, 512), (1000, 200), (1008, 256),
+                                   (72, 16), (5, 512), (300, 256)])
+def test_k1_work_items_cover_every_entry_once(n, bn):
+    """Every entry of every packed tile that lies inside the n x n matrix is
+    added exactly once by each product (Z^T Z and the counts); entries past
+    n at most once (they add zeros); no item lies wholly past n; mirrors
+    only on diagonal tiles, strictly below the diagonal sub-tile; the
+    Z^T Z items first."""
+    items, cover = _k1_coverage(n, bn)
+    _, imap, jmap = grm_kernels._pair_maps(-(-n // bn))
+    rows = imap[:, None] * bn + np.arange(bn)[None, :]  # (T, bn) individual index
+    cols = jmap[:, None] * bn + np.arange(bn)[None, :]
+    inside = (rows[:, :, None] < n) & (cols[:, None, :] < n)
+    for role in (grm_kernels.K1_ROLE_Z, grm_kernels.K1_ROLE_COUNTS):
+        assert (cover[role][inside] == 1).all()
+        assert (cover[role][~inside] <= 1).all()
+    t, ti, tj, a0, b0, role, mirror = items[:, :7].T
+    assert ((ti * bn + a0 < n) & (tj * bn + b0 < n)).all()
+    np.testing.assert_array_equal(imap[t], ti)
+    np.testing.assert_array_equal(jmap[t], tj)
+    assert (mirror == ((ti == tj) & (a0 > b0))).all()
+    assert not ((ti == tj) & (a0 < b0)).any()
+    half = len(items) // 2  # the long Z^T Z items first, then the counts
+    assert (role[:half] == grm_kernels.K1_ROLE_Z).all()
+    assert (role[half:] == grm_kernels.K1_ROLE_COUNTS).all()
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 777, 848, 2048])
+def test_k1_stages_cover_every_row_once(m):
+    """The kernel walks `grm_stages(m)` stages of 32 rows: every row of the
+    chunk once, no stage wholly past it (the last one ragged, masked)."""
+    rows = np.arange(grm_kernels.grm_stages(m) * grm_kernels.K1_ROWS_PER_STAGE)
+    assert (rows < m).sum() == m
+    assert rows[-grm_kernels.K1_ROWS_PER_STAGE] < m
+
+
+@pytest.mark.parametrize("n, bn", [(300, 256), (1000, 200), (72, 16)])
+def test_k1_work_items_emulated_equal_plain(rng, n, bn):
+    """The work list run in numpy as the kernel runs it (each item's
+    128 x 128 block of Z^T Z or O^T O added, mirrors transposed) gives the
+    plain version's packed buffers: counts exactly, products to float32
+    rounding."""
+    d = make_dosage(rng, 40, n, missing_rate=0.05)
+    mean, inv_std = (a.astype(np.float32) for a in _stats(d))
+    shape = grm_kernels.packed_shape(n, bn)
+    k0 = rng.normal(size=shape).astype(np.float32)
+    c0 = np.floor(rng.uniform(0, 50, size=shape)).astype(np.float32)
+    k_plain, c_plain = grm_kernels.plain_grm_fused_triangle_update(
+        torch.as_tensor(d), torch.as_tensor(mean), torch.as_tensor(inv_std),
+        torch.as_tensor(k0.copy()), torch.as_tensor(c0.copy()), block_n=bn)
+    z, o = standardize_chunk(torch.as_tensor(d), torch.as_tensor(mean),
+                             torch.as_tensor(inv_std), torch.float32)
+    ts = grm_kernels.K1_SUB_TILE
+    width = (-(-n // bn)) * bn + ts  # zero columns past n, and past the last sub-tile
+    ops = [np.zeros((40, width)), np.zeros((40, width))]
+    ops[0][:, :n], ops[1][:, :n] = z.numpy(), o.numpy()
+    out = [k0.astype(np.float64).reshape(-1, bn, bn), c0.astype(np.float64).reshape(-1, bn, bn)]
+    for t, ti, tj, a0, b0, role, mirror, _ in grm_kernels.grm_work_items(n, bn):
+        ci0, cj0 = ti * bn + a0, tj * bn + b0
+        ra, rb = min(ts, bn - a0), min(ts, bn - b0)  # the tile's edge
+        block = (ops[role][:, ci0:ci0 + ts].T @ ops[role][:, cj0:cj0 + ts])[:ra, :rb]
+        out[role][t, a0:a0 + ra, b0:b0 + rb] += block
+        if mirror:
+            out[role][t, b0:b0 + rb, a0:a0 + ra] += block.T
+    np.testing.assert_allclose(out[0].reshape(shape), k_plain.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(out[1].reshape(shape), c_plain.numpy())

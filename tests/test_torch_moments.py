@@ -92,6 +92,16 @@ def test_k3_wrapper_refuses_other_devices(rng):
         mk.fused_refit_moments(*args)
 
 
+def test_k3_cpu_call_counts_no_launch(rng):
+    """On CPU tensors the wrapper runs the plain version: neither K3's
+    launch count nor its count by row count M moves."""
+    p = _problem(rng, dtype=np.float32)
+    before = (mk.fused_refit_moments.launches, dict(mk.fused_refit_moments.launches_by_rows))
+    mk.fused_refit_moments(*(torch.as_tensor(a) for a in _moment_inputs(p, np.float32)))
+    after = (mk.fused_refit_moments.launches, dict(mk.fused_refit_moments.launches_by_rows))
+    assert after == before
+
+
 @pytest.mark.parametrize("n_iterations", [1, 3, 8])
 def test_ml_refit_core_trajectory_matches_jax_f64(rng, n_iterations):
     """The moment-form refit after 1, 3 and 8 Fisher steps (the
@@ -172,3 +182,79 @@ def test_mlm_gwas_ml_refit_matches_jax(rng, retry):
     for field in ("snp_beta", "snp_se", "snp_p", "cov_beta", "cov_se", "group_p"):
         np.testing.assert_allclose(getattr(ours, field), getattr(theirs, field),
                                    rtol=1e-7, atol=1e-12, err_msg=field)
+
+
+@pytest.mark.parametrize("m, n, q, k", [(50_000, 10_000, 4, 23), (1, 10_000, 4, 23),
+                                        (300, 10_000, 4, 23), (777, 1000, 4, 23),
+                                        (777, 1000, 9, 93), (5, 97, 2, 9), (1, 1, 4, 23)])
+@pytest.mark.parametrize("sm_count", [132, 8])
+def test_k3_geometry_covers_every_row_entry_and_column_once(m, n, q, k, sm_count):
+    """K3's launch geometry: every SNP row in exactly one row block, every
+    eigenbasis entry in exactly one n split (split starts on a stage
+    boundary, each split non-empty), every moment column in exactly one
+    column chunk; small M is split until the card has about two blocks
+    per SM, M = 50,000 is not split."""
+    row_blocks, chunks, splits, per = mk.refit_geometry(m, n, q, k, sm_count)
+    rows = np.zeros(m, dtype=int)
+    for rb in range(row_blocks):
+        rows[rb * mk.K3_ROWS_PER_BLOCK:(rb + 1) * mk.K3_ROWS_PER_BLOCK] += 1
+    assert (rows == 1).all() and (row_blocks - 1) * mk.K3_ROWS_PER_BLOCK < m
+    entries = np.zeros(n, dtype=int)
+    assert per % mk.K3_ENTRIES_PER_STAGE == 0
+    for sp in range(splits):
+        assert sp * per < n  # no empty split
+        entries[sp * per:(sp + 1) * per] += 1
+    assert (entries == 1).all()
+    feats = np.zeros(k, dtype=int)
+    s_cols = np.zeros(q, dtype=int)
+    for c in range(chunks):
+        feats[c * mk.K3_FEATURE_COLUMNS:(c + 1) * mk.K3_FEATURE_COLUMNS] += 1
+        s_cols[c * mk.K3_S_COLUMNS:(c + 1) * mk.K3_S_COLUMNS] += 1
+    assert (feats == 1).all() and (s_cols == 1).all()
+    blocks = row_blocks * chunks * splits
+    if row_blocks * chunks >= sm_count:
+        assert splits == 1
+    else:  # split, but not past about two blocks per SM
+        assert splits > 1 or n <= mk.K3_MIN_SPLIT_ENTRIES
+        assert blocks < 2 * sm_count + row_blocks * chunks
+
+
+@pytest.mark.parametrize("m, n, q, sm_count", [(1, 1000, 4, 132), (300, 1000, 4, 132),
+                                               (37, 97, 9, 132), (130, 200, 2, 1)])
+def test_k3_blocks_emulated_equal_plain(rng, m, n, q, sm_count):
+    """The kernel's blocks run in numpy from the packed shared columns
+    (`pack_shared_columns`: per chunk [24 feats | 4 s | lam]), each split's
+    partial moments summed in split order, equal the plain version:
+    the layout and geometry the kernel consumes are complete."""
+    g = rng.normal(size=(m, n))
+    lam = 3.0 * rng.uniform(size=n)
+    s = rng.normal(size=(n, q))
+    thetas = 0.1 + rng.uniform(size=(m, 2))
+    feats = mlm.refit_features(torch.as_tensor(s), torch.as_tensor(lam)).numpy()
+    k = feats.shape[1]
+    y = mk.pack_shared_columns(*(torch.as_tensor(a) for a in (lam, s, feats))).numpy()
+    row_blocks, chunks, splits, per = mk.refit_geometry(m, n, q, k, sm_count)
+    assert y.shape == (chunks, n, mk.K3_PACKED_WIDTH)
+    c_m1, c_m2, c_gs1, c_gs2, c_gs3, c_gg, total = mk.moment_columns(q, k)
+    partial = np.zeros((splits, m, total))
+    qc, fc = mk.K3_S_COLUMNS, mk.K3_FEATURE_COLUMNS
+    for c in range(chunks):
+        f_c, s_c, lam_c = y[c, :, :fc], y[c, :, fc:fc + qc], y[c, :, fc + qc]
+        assert not y[c, :, fc + qc + 1:].any()
+        for sp in range(splits):
+            ks = slice(sp * per, min(n, (sp + 1) * per))
+            w1 = 1.0 / (thetas[:, :1] * lam_c[None, ks] + thetas[:, 1:])
+            w2 = w1 * w1
+            h = [w1 * g[:, ks], w2 * g[:, ks], w2 * g[:, ks] * lam_c[None, ks]]
+            fcols = np.arange(c * fc, min(k, (c + 1) * fc))
+            scols = np.arange(c * qc, min(q, (c + 1) * qc))
+            out = partial[sp]
+            out[:, c_m1 + fcols] = w1 @ f_c[ks, :len(fcols)]
+            out[:, c_m2 + fcols] = w2 @ f_c[ks, :len(fcols)]
+            for base, hk in zip((c_gs1, c_gs2, c_gs3), h):
+                out[:, base + scols] = hk @ s_c[ks, :len(scols)]
+            if c == 0:
+                out[:, c_gg:c_gg + 3] = np.stack([(hk * g[:, ks]).sum(1) for hk in h], 1)
+    emulated = partial.sum(0)
+    plain = mk.plain_refit_moments(*(torch.as_tensor(a) for a in (g, thetas, lam, s, feats)))
+    np.testing.assert_allclose(emulated, plain.numpy(), rtol=1e-10, atol=1e-10)

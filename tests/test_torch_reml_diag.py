@@ -77,6 +77,24 @@ def test_coefficient_derivatives_match_jax():
         )
 
 
+@pytest.mark.parametrize("where", ["cpu", "meta"])
+def test_compile_stays_on_the_matrices_device(where):
+    """Without a device argument the model compiles onto the device its
+    matrices live on: CPU matrices stay on the CPU, and matrices on any
+    other device are never moved to the host ("meta" stands in for the
+    card here)."""
+    lam = np.linspace(0.1, 2.0, 7)
+    model = builders.build_variance_model([lam], ["GRM"], [1.0], [0.5], diagonal=True)
+    model.matrices = {k: v.to(where) for k, v in model.matrices.items()}
+    cc = model.compile()
+    assert all(m.device.type == where for m in cc.element_matrices)
+    assert cc.powers.device.type == where and cc.factors.device.type == where
+    assert cc.powers.dtype == torch.float64
+    model.matrices["other"] = torch.zeros(7, device="cpu" if where == "meta" else "meta")
+    with pytest.raises(ValueError, match="name the device"):
+        model.compile()
+
+
 @pytest.mark.parametrize("use_ml", [False, True])
 def test_single_reml_diagonal_fit_matches_jax(rng, use_ml):
     """SingleREML on a diagonalized GRM (the GWAS null fit): fitted

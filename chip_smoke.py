@@ -13,7 +13,8 @@ Phases, each of which stops the script on failure:
                each kernel's bound (bytes at the memory rate, float32 flops
                and int8 tensor-core operations each at its pipe's rate);
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
-               and BGEN input, on the card, against the stored golden files;
+               and BGEN input and dense `--reml --blue --snp-blup`, on the
+               card, against the stored golden files;
   4. main      the PLINK path: a synthetic PLINK cohort at the size users run
                (10,000 individuals x 50,000 SNPs, 1% missing, 2 quantitative
                covariates, a phenotype with h2 = 0.5 from 500 causal SNPs),
@@ -22,7 +23,15 @@ Phases, each of which stops the script on failure:
                just after;
   5. checks    finite outputs of the right shape, causal SNPs enriched among
                the smallest p-values, and on a 512-SNP subset the refit through
-               K3 against the refit through K3's plain version;
+               K3 against the refit through K3's plain version, after the
+               diagonal null REML fit of the same cohort;
+  5b. reml     dense `--reml --bfile --blue --snp-blup --indiv-blup
+               --indiv-blup-error` on the PLINK cohort through main(), the GRM
+               built in line by K1, launch counters zeroed just before and read
+               just after; its variances against the diagonal null fit's, h2,
+               the covariate BLUEs, SNP BLUPs recomputed in float64 and the
+               BLUP errors; one REML iteration's Cholesky inverse and the whole
+               iteration timed apart;
   6. bgen      the BGEN path: a synthetic imputed cohort of the same size in
                UK Biobank's format (BGEN layout 2, 8-bit, zlib), dosages blurred
                off the hard calls, 1% missing, the same covariate and phenotype
@@ -89,6 +98,16 @@ K3_TRACE_RTOL = 1e-6
 # Fisher steps on moments that differ by rounding; the bound JAX's tests
 # use between their two moment paths (tests/test_gwas_covariance.py).
 REFIT_RTOL = 2e-3
+# Golden REML files: the dense fit runs in float64 on the card, as the JAX
+# package ran it on the CPU; the golden tests' tolerance.
+GOLDEN_REML_RTOL = 2e-5
+# The dense REML's variances against the diagonal null fit of the same
+# model: both are float64 Newton fits stopped at relative variance
+# changes of 1e-5, so they meet well inside 1e-4.
+NULL_VS_DENSE_RTOL = 1e-4
+# SNP BLUPs against their float64 recomputation from the fitted
+# variances: the same float64 sums in another order.
+SNP_BLUP_RTOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -430,7 +449,8 @@ def phase_golden(workdir):
     another order), counts exact, ids and SNP lists equal.
     The GWAS runs in float32 on the card against float64 golden files:
     estimates and SEs at rtol 1e-3 (atol 1e-3 x SE for estimates near 0),
-    and the same unfitted SNPs."""
+    and the same unfitted SNPs.  Dense REML on the stored golden GRM runs
+    in float64, as the golden files were written: text at rtol 2e-5."""
     from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.io.grm_io import read_grm
 
@@ -462,8 +482,31 @@ def phase_golden(workdir):
     for ext in ("grm.ids", "grm.snps"):
         check(Path(f"{out}.bgen.{ext}").read_bytes() == (golden / f"golden.bgen.{ext}").read_bytes(),
               f"golden BGEN .{ext} differs")
-    log("golden cohort on the card: GRM, OLS and mixed-model GWAS, and the BGEN GRM, "
-        "agree with tests/golden")
+    # dense REML, BLUE and SNP BLUPs on the stored golden GRM
+    main(["--reml", "--grm", str(golden / "golden"), "--blue", "--snp-blup"] + base
+         + ["--out", f"{out}"])
+    for name in ("golden.reml", "golden.blue.mean", "golden.GRM.blup.snps"):
+        diff_text_files(workdir / name, golden / name, GOLDEN_REML_RTOL)
+    log("golden cohort on the card: GRM, OLS and mixed-model GWAS, the BGEN GRM, and "
+        "dense REML with BLUE and SNP BLUPs, agree with tests/golden")
+
+
+def diff_text_files(ours, ref, rtol):
+    """Line by line, field by field: words equal, numbers at rtol (the
+    rule of tests/test_golden.py's _diff_files)."""
+    a, b = Path(ours).read_text().split("\n"), Path(ref).read_text().split("\n")
+    check(len(a) == len(b), f"{Path(ref).name}: {len(a)} lines, expected {len(b)}")
+    for ln, (la, lb) in enumerate(zip(a, b), start=1):
+        pa, pb = la.split(), lb.split()
+        check(len(pa) == len(pb), f"{Path(ref).name}:{ln}: field count")
+        for fa, fb in zip(pa, pb):
+            try:
+                va, vb = float(fa), float(fb)
+            except ValueError:
+                check(fa == fb, f"{Path(ref).name}:{ln}: {fa!r} != {fb!r}")
+                continue
+            check(abs(va - vb) <= rtol * abs(vb) + 1e-12,
+                  f"{Path(ref).name}:{ln}: {va!r} != {vb!r} at rtol {rtol:g}")
 
 
 def _read_gwas(path):
@@ -626,14 +669,7 @@ def phase_checks(workdir, causal, device):
 
     # 512-SNP subset: refit through K3 vs through its plain version, on the card
     data = read_plink(str(workdir / "cohort"))
-    pheno = {}
-    with open(workdir / "pheno.txt") as fh:
-        for line in fh:
-            f = line.split()
-            pheno[f[0] + "@" + f[1]] = float(f[2])
-    qcov = np.loadtxt(workdir / "qcovar.txt", usecols=(2, 3))
-    x = np.column_stack([np.ones(N_INDIVIDUALS), qcov])
-    y = np.array([pheno[kk] for kk in data.individual_keys])
+    y, x = _traits(workdir, data.individual_keys)
     from dissect_tpu_torch.analysis.dispatcher import _centered_genotypes
     from dissect_tpu_torch.model.kernels import Kernel, KernelType
     from dissect_tpu_torch.io.phenotype import Phenotype
@@ -666,6 +702,124 @@ def phase_checks(workdir, causal, device):
     log(f"512-SNP subset: K3 vs plain refit agree at rtol {REFIT_RTOL:g} on {int(both.sum())} SNPs "
         f"(max beta diff {np.max(np.abs(fused.snp_beta[both] - plain.snp_beta[both])):.3e})")
     return {**summary, "null_variances": list(theta)}
+
+
+def _traits(workdir, keys):
+    """(y, X) of the written cohort in the order of `keys`: the phenotype
+    and the design [1 | the two quantitative covariates]."""
+    pheno = {}
+    with open(workdir / "pheno.txt") as fh:
+        for line in fh:
+            f = line.split()
+            pheno[f[0] + "@" + f[1]] = float(f[2])
+    qcov = np.loadtxt(workdir / "qcovar.txt", usecols=(2, 3))
+    return np.array([pheno[k] for k in keys]), np.column_stack([np.ones(len(keys)), qcov])
+
+
+# ---------------------------------------------------------------- phase 5b --
+def phase_reml(workdir, counters, null_variances, device):
+    """Dense `--reml --bfile --blue --snp-blup --indiv-blup
+    --indiv-blup-error` on the PLINK cohort through main(), every launch
+    counter zeroed just before and read just after: the GRM is built in
+    line by K1 (25 launches), then the dense float64 fit.  Checks: the fit
+    converged; its variances equal the diagonal null fit's of phase 5 (the
+    same REML model, fitted in the GRM's eigenbasis); h2 near the
+    simulated 0.5; the covariate BLUEs within 4 SE of the simulated 0.3
+    and -0.2; the SNP BLUPs of 1,000 SNPs equal
+    s2_g (z . Py) n / (n_s M) with Py recomputed here in float64 from the
+    fitted variances; BLUP errors finite and positive.  Then one
+    iteration's parts at the fitted variances, timed apart: the Cholesky
+    inverse of V, and the whole quantities call."""
+    from dissect_tpu_torch.analysis.dispatcher import main
+    from dissect_tpu_torch.io.bed import read_plink
+    from dissect_tpu_torch.io.grm_io import read_grm
+    from dissect_tpu_torch.linalg.spd import spd_inverse_logdet
+    from dissect_tpu_torch.reml.builders import build_variance_model
+    from dissect_tpu_torch.reml.engine import REMLEngine
+    from dissect_tpu_torch.runtime.timers import timers
+
+    args = ["--reml", "--bfile", str(workdir / "cohort"), "--pheno", str(workdir / "pheno.txt"),
+            "--qcovar", str(workdir / "qcovar.txt"), "--blue", "--snp-blup", "--indiv-blup",
+            "--indiv-blup-error", "--out", str(workdir / "reml")]
+    for fn in counters.values():
+        fn.launches = 0
+    counters["fused_refit_moments"].launches_by_rows.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.monotonic()
+    out = main(args)
+    seconds = {"reml": time.monotonic() - t0}
+    seconds.update({f"reml_{k}": v for k, v in timers.elapsed.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    log("reml path launches: " + json.dumps(launches))
+    check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the reml path")
+    res = out.result
+    check(res.success, "dense REML did not converge")
+    var = dict(zip(res.variance_names, res.variances))
+    dense = np.array([var["Var(GRM)"], var["Var(E)"]])
+    null_variances = [float(v) for v in null_variances]
+    log(f"dense REML: variances {dense.tolist()} in {res.n_iterations} iterations; "
+        f"diagonal null fit {null_variances}")
+    check(np.allclose(dense, null_variances, rtol=NULL_VS_DENSE_RTOL, atol=0),
+          f"dense REML variances {dense} differ from the null fit's {null_variances}")
+    h2 = out.heritabilities[-1].value
+    check(abs(h2 - 0.5) <= 0.1, f"h2 {h2} not within 0.5 +- 0.1")
+    blue, blue_se = out.blue, out.blue_se
+    for j, truth in ((1, 0.3), (2, -0.2)):
+        check(abs(blue[j] - truth) <= 4 * blue_se[j],
+              f"BLUE {j} = {blue[j]} +- {blue_se[j]}, simulated {truth}")
+    errors = out.blup_errors["GRM"]
+    check(np.isfinite(errors).all() and (errors > 0).all(), "BLUP errors not finite and positive")
+    check(np.isfinite(out.blup["GRM"]).all(), "individual BLUPs not finite")
+
+    # Py recomputed in float64 from the fitted variances and the written GRM
+    data = read_plink(str(workdir / "cohort"))
+    check(data.individual_keys == out.individual_keys, "REML individuals are not the cohort's")
+    y_h, x_h = _traits(workdir, data.individual_keys)
+    k64 = torch.as_tensor(read_grm(str(workdir / "grm"))["kernel"], device=device).double()
+    y, x = (torch.as_tensor(a, device=device) for a in (y_h, x_h))
+    v = dense[0] * k64 + dense[1] * torch.eye(N_INDIVIDUALS, device=device, dtype=torch.float64)
+    chol = torch.linalg.cholesky(v)
+    vi_y, vi_x = torch.cholesky_solve(y[:, None], chol)[:, 0], torch.cholesky_solve(x, chol)
+    beta = torch.linalg.solve(x.T @ vi_x, vi_x.T @ y)
+    py = (vi_y - vi_x @ beta).cpu().numpy()
+    del chol, vi_x
+    idx = np.arange(0, N_SNPS, N_SNPS // 1000)[:1000]
+    stats = data.stats()
+    d = data.decode_chunk(0, N_SNPS)[idx].astype(np.float64)
+    obs = d >= 0
+    z = np.where(obs, (d - stats.mean[idx, None]) / stats.std[idx, None], 0.0)
+    expect = dense[0] * (z @ py) * N_INDIVIDUALS / (obs.sum(1) * N_SNPS)
+    written = {}
+    with open(workdir / "reml.GRM.blup.snps") as fh:
+        next(fh)
+        for line in fh:
+            f = line.split()
+            written[f[0]] = float(f[2])
+    got = np.array([written[data.snps[i].name] for i in idx])
+    snp_err = float(np.max(np.abs(got - expect) / np.abs(expect)))
+    log(f"SNP BLUPs of {len(idx)} SNPs against float64: worst relative error {snp_err:.2e} "
+        f"(tol {SNP_BLUP_RTOL:g})")
+    check(snp_err <= SNP_BLUP_RTOL, "SNP BLUPs disagree with their float64 recomputation")
+
+    # one iteration's parts at the fitted variances
+    model = build_variance_model([k64], ["GRM"], [float(np.var(y_h, ddof=1))], [0.5])
+    engine = REMLEngine(model, y, x, device=device)
+    inverse_ms = time_ms(lambda: spd_inverse_logdet(v), iters=3, warmup=1)
+    iteration_ms = time_ms(lambda: engine._quantities(res.variances), iters=3, warmup=1)
+    del v, engine, model, k64
+    phase_s = seconds.get("reml_REML", float("nan"))
+    summary = {
+        "variances": dense.tolist(), "null_variances": null_variances,
+        "h2": h2, "blue": blue.tolist(), "blue_se": blue_se.tolist(),
+        "iterations": res.n_iterations, "log_likelihood": res.log_likelihood,
+        "seconds_per_iteration": phase_s / res.n_iterations,
+        "cholesky_inverse_ms": inverse_ms, "iteration_ms": iteration_ms,
+        "snp_blup_rel_err": snp_err, "peak_device_gb": peak_gb,
+    }
+    log("reml path: " + json.dumps(summary))
+    return launches, seconds, summary
 
 
 # ----------------------------------------------------------------- phase 6 --
@@ -772,6 +926,10 @@ def main():
         t0 = time.monotonic()
         summary = {"plink": phase_checks(plink_dir, causal, device)}
         seconds["checks"] = time.monotonic() - t0
+        reml_launches, reml_seconds, summary["reml"] = phase_reml(
+            plink_dir, counters, summary["plink"]["null_variances"], device)
+        seconds.update(reml_seconds)
+        peak_gb["reml"] = summary["reml"]["peak_device_gb"]
         shutil.rmtree(plink_dir, ignore_errors=True)
 
         t0 = time.monotonic()
@@ -798,7 +956,8 @@ def main():
         shutil.rmtree(workdir, ignore_errors=True)
 
     for entry in kernels:
-        by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]]}
+        by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]],
+                   "reml": reml_launches[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "fused_refit_moments":

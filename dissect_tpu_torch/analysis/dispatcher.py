@@ -1,12 +1,17 @@
-"""Analysis dispatcher — the workflow driver of the ported analyses.
+"""Analysis dispatcher — the workflow sreml of the ported analyses.
 
 Parity: Analysis (analysis.cpp:43-548) + main.cpp's dispatch chain
 (main.cpp:101-234) + the loaders-from-options in auxiliar.h:246-310.
 Port of the pieces of dissect_tpu/analysis/dispatcher.py on the
-`--make-grm` -> `--gwas [--grm]` path (PLINK or BGEN input) and of the
-GRM family (`--make-grm-mr`, `--add-grms`, `--filter-matrix`,
-`--gcta-grms-gz`, `--grm-epi`), on one device.  Every other analysis
-raises NotImplementedError naming its ROADMAP.md item.
+`--make-grm` -> `--gwas [--grm]` path (PLINK or BGEN input), of the GRM
+family (`--make-grm-mr`, `--add-grms`, `--filter-matrix`,
+`--gcta-grms-gz`, `--grm-epi`), of dense single-trait `--reml` (BLUE,
+individual and SNP BLUPs, extra random-effect kernels, weights, reduced
+models, initial variances, checkpoints, subsample pre-fits) and of the
+GWAS routes that need a dense V (extra kernels,
+`--gwas-use-null-variances`, `--bfile-grm-list`/`--bgen-grm-list`), on
+one device.  Every other analysis raises NotImplementedError naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
+from dissect_tpu_torch.gwas.mlm import mlm_gwas_fixed_v, mlm_gwas_ml_refit
 from dissect_tpu_torch.gwas.ols import GwasResults, ols_gwas
 from dissect_tpu_torch.io import grm_io
 from dissect_tpu_torch.io.bed import PlinkData, read_plink
@@ -25,8 +30,20 @@ from dissect_tpu_torch.io.covariate import read_covariates
 from dissect_tpu_torch.io.ids import intersection_keeping_order
 from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.io.phenotype import n_phenotype_columns, read_phenotype
-from dissect_tpu_torch.model.kernels import Kernel, KernelType, grm_from_plink
+from dissect_tpu_torch.model.kernels import (
+    Kernel,
+    KernelType,
+    couples_kernel,
+    grm_from_plink,
+    kernel_from_discrete,
+    kernel_from_multi_discrete,
+    kernel_squared_exponential,
+)
+from dissect_tpu_torch.reml.reduced import write_lrt_table
 from dissect_tpu_torch.reml.single import SingleREML
+from dissect_tpu_torch.reml.snp_blup import compute_snp_blup, write_snp_blup
+from dissect_tpu_torch.reml.summary import write_blue, write_blup_indiv, write_reml_summary
+from dissect_tpu_torch.runtime.checkpoint import read_initial_variances
 from dissect_tpu_torch.runtime.device import check_single_device, cli_device
 from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE, bulk_dtype, configure_precision
 from dissect_tpu_torch.runtime.log import get_logger, result_open, set_zout
@@ -168,6 +185,58 @@ class Analysis:
             matrix=put(loaded["kernel"], GRM_DTYPE),
             counts=put(loaded["counts"], GRM_DTYPE),
         )
+
+    def load_reml_kernels(self):
+        """The multi-GRM loadGRMUsingOptions overload
+        (auxiliar.cpp:702-860): --grm-list rows
+        'name grm_prefix N|F|L [genotypes]' load several NAMED GRMs
+        fitted jointly; F (file) / L (list file) attach the genotype
+        source used for that sub-covariance's SNP BLUPs
+        (computeSNPsBLUP's per-name loop, reml.cpp:3098-3135).
+
+        Returns (kernels, blup_sources) with blup_sources mapping a
+        kernel name to its genotype prefixes (None = the analysis'
+        default --bfile genotypes)."""
+        a = self.args
+        blup_sources: dict = {}
+        if not a.grm_list:
+            kern = self.load_grm()
+            if a.snp_blup:
+                if a.blup_bfile_list:
+                    # SNP effects from a separate genotype list
+                    # (--blup-bfile-list, options.cpp:736-740)
+                    with open(a.blup_bfile_list) as fh:
+                        blup_sources[kern.name] = [ln.strip() for ln in fh if ln.strip()]
+                elif a.bfile or a.bfile_list or a.bgen:
+                    blup_sources[kern.name] = None
+            return [kern], blup_sources
+        kernels: List[Kernel] = []
+        with open(a.grm_list) as fh:
+            for line in fh:
+                parts = line.split()
+                if not parts:
+                    continue
+                name, prefix = parts[0], parts[1]
+                kern = self._kernel_from_loaded(name, grm_io.read_grm(prefix))
+                if not kern.diagonalized:
+                    kern = kern.sanitize(a.min_overlap_snps)
+                    if a.grm_cutoff is not None:
+                        kern = kern.prune(a.grm_cutoff)
+                kernels.append(kern)
+                flag = parts[2] if len(parts) > 2 else "N"
+                if a.snp_blup and flag == "F":
+                    blup_sources[name] = [parts[3]]
+                elif a.snp_blup and flag == "L":
+                    with open(parts[3]) as lf:
+                        blup_sources[name] = [ln.strip() for ln in lf if ln.strip()]
+                elif flag not in ("N", "F", "L"):
+                    raise ValueError(
+                        f"invalid genotype flag {flag!r} in [ {a.grm_list} ] "
+                        "(valid: N, F, L; auxiliar.cpp:786)"
+                    )
+        if not kernels:
+            raise ValueError(f"no GRMs listed in [ {a.grm_list} ]")
+        return kernels, blup_sources
 
     def load_grm(self, allow_compute: bool = True) -> Kernel:
         """loadGRMUsingOptions parity (auxiliar.h:264-275): read a stored
@@ -365,36 +434,220 @@ class Analysis:
             prefix, _host(kern.matrix), _host(kern.counts), kern.individual_keys, kern.snp_names
         )
 
-    def _check_single_kernel(self):
-        """The GWAS covariance from the GRM alone: the extra random-effect
-        kernels need the dense REML fit of the covariance
-        (gwas.cpp:1506-1592)."""
+    def extra_kernels(self, base_kernel: Kernel) -> List[Kernel]:
+        """Additional random-effect kernels from options
+        (addKernelsUsingOptions, auxiliar.h:276-310): discrete /
+        multi-discrete covariate kernels, partner-resorted (couples)
+        GRMs, squared-exponential kernels, and GRM x environment
+        interaction kernels, all on the device."""
         a = self.args
-        if a.random_effects or a.multirandom_effects or a.sqrt_exp_coord_files:
-            raise _not_ported("GWAS with extra random-effect kernels", "item 2")
+        dev = self.device
+        kernels: List[Kernel] = []
+        if a.random_effects:
+            table = {}
+            with open(a.random_effects) as fh:
+                for line_no, line in enumerate(fh):
+                    parts = line.split()
+                    if not parts or (line_no == 0 and parts[0].upper() == "FID"):
+                        continue
+                    table[parts[0] + "@" + parts[1]] = parts[1 + a.random_effects_cols]
+            keys = [k for k in base_kernel.individual_keys if k in table]
+            env = kernel_from_discrete("RE1", keys, [table[k] for k in keys], device=dev)
+            kernels.append(env)
+            if a.gxe:
+                kernels.append(base_kernel.filter_individuals(keys).interaction(env, "GxE"))
+        if a.multirandom_effects:
+            table = {}
+            ncols = a.multirandom_effects_cols
+            with open(a.multirandom_effects) as fh:
+                for line_no, line in enumerate(fh):
+                    parts = line.split()
+                    if not parts or (line_no == 0 and parts[0].upper() == "FID"):
+                        continue
+                    cats = parts[2 : 2 + ncols]
+                    if len(cats) == 1:
+                        cats = cats[0].split(",")
+                    table[parts[0] + "@" + parts[1]] = cats
+            keys = [k for k in base_kernel.individual_keys if k in table]
+            kernels.append(
+                kernel_from_multi_discrete("MRE1", keys, [table[k] for k in keys], device=dev)
+            )
+        if a.indirect_effects_couples:
+            couples = {}
+            with open(a.indirect_effects_couples) as fh:
+                for line in fh:
+                    parts = line.split()
+                    if len(parts) >= 4:
+                        couples[parts[0] + "@" + parts[1]] = parts[2] + "@" + parts[3]
+            coup = couples_kernel(base_kernel, couples)
+            if coup is not None:
+                kernels.append(coup)
+            else:
+                self.log.message(
+                    "WARNING: not enough coupled individuals; indirect-effects kernel skipped"
+                )
+        if a.sqrt_exp_coord_files:
+            coords, keys = [], []
+            with open(a.sqrt_exp_coord_files) as fh:
+                for line_no, line in enumerate(fh):
+                    parts = line.split()
+                    if not parts or (line_no == 0 and parts[0].upper() == "FID"):
+                        continue
+                    keys.append(parts[0] + "@" + parts[1])
+                    coords.append([float(v) for v in parts[2:]])
+            kernels.append(
+                kernel_squared_exponential("SEK-1", keys, np.asarray(coords), device=dev)
+            )
+        return kernels
 
+    # ------------------------------------------------------------- REML ---
+    def make_reml(self):
+        """--reml (analysis.cpp:137-157, singlereml.cpp:56-228); with
+        --all-phenos / multiple --pheno-cols the fit loops over phenotype
+        columns (the singlereml.cpp:84-102 file x column loop), writing
+        one output set per column."""
+        a = self.args
+        if (a.region_size or a.groups) and (a.bfile or a.bfile_list):
+            raise _not_ported("regional REML (--reml --region-size / --groups)", "item 6")
+        phenos = self.load_phenotypes()
+        if len(phenos) == 1:
+            return self._reml_one(phenos[0])
+        base, outs = a.out, []
+        for i, pheno in enumerate(phenos, start=1):
+            a.out = f"{base}.{i}"
+            try:
+                outs.append(self._reml_one(pheno))
+            finally:
+                a.out = base
+        return outs
+
+    def _reml_one(self, pheno):
+        a = self.args
+        stored = a.grm or a.grm_list or a.gcta_grms_gz
+        with timers.phase("LoadGRM" if stored else "ComputeGRM"):
+            base_kernels, blup_sources = self.load_reml_kernels()
+        kern = base_kernels[0]
+        covar = self.load_covariate(pheno.keys)
+        kernels = base_kernels + self.extra_kernels(kern)
+        if a.epistasis_var:
+            # epistatic K.*K as an ADDITIONAL variance component
+            # (--epistasis-var, singlereml.cpp:72-90); --grm-epi instead
+            # REPLACES the GRM with its epistatic form
+            kernels.append(kern.epistatic())
+        env_weights = None
+        if a.weights:
+            # per-individual residual weights E = diag(w) (--weights /
+            # --weights-col, options.cpp:770-778, reml.cpp:334-446)
+            env_weights = read_phenotype(a.weights, a.weights_col)
+        sreml = SingleREML(
+            kernels, pheno, covar, self.options.reml_options(),
+            environmental_weights=env_weights,
+            scale_weights=not a.no_scale_weights,
+            device=self.device,
+        )
+        initial_variances = None
+        replicates = a.subsample_replicates
+        if a.reml_subsample and replicates == 0:
+            replicates = 10  # --reml-subsample default (options.cpp:603-606)
+        if a.initial_variances:
+            initial_variances = read_initial_variances(a.initial_variances)
+        elif replicates > 0:
+            with timers.phase("REML"):
+                initial_variances = sreml.subsample_prefit(
+                    replicates, a.subsample_proportion, a.random_seed
+                )
+        fit_args = dict(
+            compute_blue=True,
+            compute_blup=a.indiv_blup,
+            compute_blup_errors=a.indiv_blup_error,
+            initial_variances=initial_variances,
+            checkpoint_path=a.checkpoint,
+        )
+        lrts = None
+        if len(kernels) > 1 and not a.skip_test_reduced_models and not a.use_ml:
+            # computeREMLWithReducedModels (reml.cpp:1301-1460): refit
+            # with each named genetic sub-covariance removed and LRT
+            out, lrts = sreml.compute_with_reduced_models(
+                elements_to_test=a.reduced_with_only,
+                include_blue=a.write_blue_reduced,
+                **fit_args,
+            )
+        else:
+            out = sreml.compute(**fit_args)
+        x_names = covar.filter_individuals(out.individual_keys).column_names
+        with timers.phase("WriteREML"):
+            if lrts is not None:
+                write_lrt_table(a.out, lrts)
+                if a.write_blue_reduced:
+                    for row in lrts:
+                        if row.get("blue") is not None:
+                            beta, se = row["blue"]
+                            write_blue(f"{a.out}.reduced_{row['removed']}", beta, se, x_names)
+            write_reml_summary(a.out, sreml.model, out.result, use_ml=a.use_ml)
+            if a.blue and out.blue is not None:
+                write_blue(a.out, out.blue, out.blue_se, x_names)
+            if a.indiv_blup and out.blup:
+                for name, blup in out.blup.items():
+                    errors = (out.blup_errors or {}).get(name)
+                    write_blup_indiv(a.out, name, out.individual_keys, blup, errors=errors)
+        if a.snp_blup and blup_sources:
+            self._snp_blups(sreml, out, base_kernels, blup_sources)
+        self.log.message(f"REML results stored at [ {a.out}.reml ]")
+        return out
+
+    def _snp_blups(self, sreml, out, base_kernels, blup_sources):
+        """--snp-blup: one .<name>.blup.snps per named sub-covariance with
+        genotype data (computeSNPsBLUP, reml.cpp:3098-3135), from the
+        fitted Py on the device."""
+        a = self.args
+        py = sreml.engine.final_py()
+        for k in base_kernels:
+            vname = f"Var({k.name})"
+            if k.name not in blup_sources or vname not in out.result.variance_names:
+                continue
+            sources = blup_sources[k.name]
+            with timers.phase("LoadGenotypes"):
+                if sources is None:
+                    datasets = [(None, self.load_genotype())]
+                else:
+                    datasets = [(p, read_plink(p)) for p in sources]
+            for prefix, data in datasets:
+                with timers.phase("SNPBLUP"):
+                    blup_result = compute_snp_blup(
+                        data,
+                        out.individual_keys,
+                        py,
+                        out.result.variance(vname),
+                        grm_snp_names=None if a.blup_no_filter_snps else (k.snp_names or None),
+                    )
+                tag = "" if prefix is None else "." + prefix.replace("/", "_")
+                with timers.phase("WriteREML"):
+                    write_snp_blup(a.out + tag, k.name, blup_result)
+
+    # ------------------------------------------------------------- GWAS ---
     def make_gwas(self):
         """--gwas (gwas.cpp:126-312): OLS without a GRM, mixed model with."""
         a = self.args
         if a.bfile_grm_list or a.bgen_grm_list:
-            raise _not_ported("--bfile-grm-list / --bgen-grm-list", "item 2")
+            return self._gwas_genotype_grm_list()
         if a.groups or a.group_all:
             raise _not_ported("grouped GWAS (--groups / --group-all)", "item 6")
-        if a.grm and a.gwas_use_null_variances:
-            raise _not_ported("--gwas-use-null-variances (mlm_gwas_fixed_v)", "item 2")
         with timers.phase("LoadGenotypes"):
             data = self.load_genotype()
         pheno = self.load_phenotypes()[0]
         covar = self.load_covariate(pheno.keys)
 
         kern = None
+        extras: List[Kernel] = []
         if a.grm:
-            self._check_single_kernel()
             with timers.phase("LoadGRM"):
                 kern = self.load_grm(allow_compute=False)
+            extras = self.extra_kernels(kern)
             common = intersection_keeping_order(
                 kern.individual_keys, pheno.keys, covar.keys, data.individual_keys
             )
+            for extra in extras:
+                common = intersection_keeping_order(common, extra.individual_keys)
         else:
             common = intersection_keeping_order(
                 data.individual_keys, pheno.keys, covar.keys
@@ -407,10 +660,16 @@ class Analysis:
         x = covar.filter_individuals(common).matrix
 
         if kern is not None:
-            lam, u, (vg, ve) = self._gwas_covariance(kern, common, pheno, covar)
-            solver = lambda z: mlm_gwas_ml_refit(
-                z, y, x, lam, u, (vg, ve), retry_unfitted=a.gwas_retry_unfitted
-            )
+            lam, u, (vg, ve) = self._gwas_covariance([kern] + extras, common, pheno, covar)
+            if a.gwas_use_null_variances:
+                # EMMAX fast path: V^-1 straight from the eigenbasis, in
+                # float64 on the device; the GLS runs at the bulk dtype
+                v_inv = (u * (1.0 / (vg * lam + ve))) @ u.T
+                solver = lambda z: mlm_gwas_fixed_v(z, y, x, v_inv)
+            else:
+                solver = lambda z: mlm_gwas_ml_refit(
+                    z, y, x, lam, u, (vg, ve), retry_unfitted=a.gwas_retry_unfitted
+                )
         else:
             solver = lambda z: ols_gwas(z, y, x)
         with timers.phase("GWAS"):
@@ -422,25 +681,89 @@ class Analysis:
             self._write_gwas(res, data, covar, common, row_var)
         return res
 
-    def _gwas_covariance(self, kern: Kernel, common, pheno, covar):
-        """GWAS::computeCovariance (gwas.cpp:1400-1602) with one kernel:
-        the GRM is diagonalized ONCE, the null fit runs on the O(n)
-        diagonal fast path, and every per-SNP ML refit reuses the same
-        eigenbasis (gwas.cpp:1509-1595 + 189-209).
+    def _gwas_covariance(self, kernels: List[Kernel], common, pheno, covar):
+        """GWAS::computeCovariance (gwas.cpp:1400-1602): the mixed-model
+        covariance kernel and the per-SNP warm-start variances.
+
+        One kernel: the GRM itself.  Several (the GRM and the random-effect
+        kernels of addKernelsUsingOptions): an internal dense REML fit
+        builds V = sum(sigma2_i K_i) + sigma2_E I, scaled by
+        1/sum(sigma2_genetic) (gwas.cpp:1582-1596).  Either way the result
+        is diagonalized ONCE, the null fit runs on the O(n) diagonal fast
+        path, and every per-SNP ML refit reuses the same eigenbasis
+        (gwas.cpp:1509-1595 + 189-209).
 
         Returns (eigenvalues, eigenvectors, (v_genetic, v_residual)),
         the eigenpairs as float64 tensors on the device."""
-        base = kern.filter_individuals(common)
+        kernels = [k.filter_individuals(common) for k in kernels]
+        if len(kernels) == 1:
+            base = kernels[0]
+        else:
+            self.log.message(
+                f"Computing the GWAS covariance from {len(kernels)} kernels "
+                "(internal REML fit, gwas.cpp:1506-1592)"
+            )
+            sreml = SingleREML(
+                kernels, pheno, covar, self.options.reml_options(), device=self.device
+            )
+            fit = sreml.compute(compute_blue=False)
+            if not fit.result.success:
+                raise RuntimeError(
+                    "REML did not converge, the GWAS covariance cannot be "
+                    "computed (gwas.cpp:1563-1569)"
+                )
+            theta = torch.as_tensor(fit.result.variances, dtype=torch.float64, device=self.device)
+            v = sreml.engine.cc.assemble_dense(theta)
+            sigma_g = float(fit.result.variances[sreml.model.genetic_variance_indices()].sum())
+            base = Kernel(
+                name="V",
+                type=KernelType.COVARIANCE_MATRIX,
+                individual_keys=list(common),
+                matrix=v / sigma_g,
+            )
         with timers.phase("DiagonalizeGRM"):
             diag = base.diagonalize()
         with timers.phase("NullREML"):
             null = SingleREML(
                 [diag], pheno, covar, self.options.reml_options(), device=self.device
-            ).compute()
+            ).compute(compute_blue=False)
         vnames = null.result.variance_names
         vg = null.result.variances[vnames.index(f"Var({base.name})")]
         ve = null.result.variances[vnames.index("Var(E)")]
         return diag.eigenvalues, diag.eigenvectors, (vg, ve)
+
+    def _gwas_genotype_grm_list(self):
+        """--bfile-grm-list / --bgen-grm-list (gwas.cpp:61-110): a
+        2-column 'genotype grm' table; each genotype file runs a GWAS
+        corrected by its paired GRM, files sharing a GRM grouped together
+        so the covariance loads once."""
+        a = self.args
+        list_path = a.bfile_grm_list or a.bgen_grm_list
+        is_bgen = bool(a.bgen_grm_list)
+        pairs = []
+        with open(list_path) as fh:
+            for line in fh:
+                parts = line.split()
+                if len(parts) >= 2:
+                    pairs.append((parts[0], parts[1]))
+        if len({g for g, _ in pairs}) != len(pairs):
+            raise ValueError(f"repeated genotype file in [ {list_path} ] (gwas.cpp:102)")
+        pairs.sort(key=lambda p: p[1])  # same-GRM files together
+        saved = (a.bfile, a.bgen, a.grm, a.bfile_grm_list, a.bgen_grm_list, a.out)
+        a.bfile_grm_list = a.bgen_grm_list = None
+        outs = []
+        try:
+            for geno, grm in pairs:
+                if is_bgen:
+                    a.bfile, a.bgen = None, geno
+                else:
+                    a.bfile, a.bgen = geno, None
+                a.grm = grm
+                a.out = f"{saved[5]}.{geno.replace('/', '_')}"
+                outs.append(self.make_gwas())
+        finally:
+            (a.bfile, a.bgen, a.grm, a.bfile_grm_list, a.bgen_grm_list, a.out) = saved
+        return outs
 
     def _write_gwas(self, res, data: Union[PlinkData, BgenData], covar, common, row_var=None):
         """Write .gwas.snps / .gwas.mean / .gwas.discrete /
@@ -531,9 +854,9 @@ class Analysis:
             "GWAS": self.make_gwas,
             "filterMatrix": self.make_filter_matrix,
             "addGRMs": self.make_add_grms,
+            "REML": self.make_reml,
         }
         not_ported = {
-            "REML": "item 2",
             "PCA": "item 3",
             "bivarREML": "item 5",
             "multiREML": "item 5",
@@ -562,7 +885,8 @@ class Analysis:
 
 def main(argv=None):
     """The CLI: parse, pick the device (the card unless
-    DISSECT_TPU_TORCH_DEVICE asks for the CPU), run one analysis."""
+    DISSECT_TPU_TORCH_DEVICE asks for the CPU), run one analysis, and
+    return what it returned (e.g. a SingleREMLOutput for --reml)."""
     configure_precision()
     options = Options.parse(argv)
     check_single_device(options.args.mesh)
@@ -577,7 +901,7 @@ def main(argv=None):
         log.message(f"Device: {device} ({name})")
         timers.reset()  # in-process sequential runs must not accumulate
         with timers.phase("Total"):
-            Analysis(options, device).run()
+            output = Analysis(options, device).run()
         mem = timers.process_memory()
         total = timers.elapsed.get("Total", 0.0)
         log.message(
@@ -586,3 +910,4 @@ def main(argv=None):
         )
     finally:
         log.close()
+    return output

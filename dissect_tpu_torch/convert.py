@@ -13,7 +13,7 @@ the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,12 @@ from dissect_tpu_torch.io.bed import IndividualInfo, SnpInfo
 from dissect_tpu_torch.io.bgen import BgenData
 from dissect_tpu_torch.linalg.grm_kernels import packed_shape
 from dissect_tpu_torch.linalg.syrk import grm_accumulator
+from dissect_tpu_torch.model.covariance import (
+    CovarianceModel,
+    EffectType,
+    ParameterType,
+    VarianceTransform,
+)
 from dissect_tpu_torch.model.kernels import Kernel, KernelType
 from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE
 
@@ -116,3 +122,48 @@ def reml_theta(variance_names: Sequence[str], variances,
     if missing:
         raise ValueError(f"no value for variances {missing}")
     return np.array([values[nm] for nm in order], dtype=np.float64)
+
+
+def covariance_model_from_state(
+    n: int,
+    n_traits: int,
+    diagonal: bool,
+    matrices: Dict[str, object],
+    variances: Sequence,
+    elements: Sequence,
+    group_magnitudes: Optional[Dict[str, float]] = None,
+    device="cuda",
+) -> CovarianceModel:
+    """The port's CovarianceModel from a JAX CovarianceModel's state: its
+    matrices by name (numpy arrays, moved to `device` as float64), its
+    Variance records and its Element records (any objects with those
+    attribute names; enums are matched by member name), and its group
+    magnitudes.  Both engines then evaluate the same V(theta).  Every
+    trait block must hold all n individuals (uniform trait sizes)."""
+    model = CovarianceModel(n, n_traits, diagonal)
+    model.group_magnitudes = dict(group_magnitudes or {})
+    names = [v.name for v in variances]
+    for v in variances:
+        idx = model.insert_variance(
+            v.name,
+            v.group,
+            ParameterType[v.type.name],
+            EffectType[v.effect.name],
+            v.initial_value,
+            [names[d] for d in sorted(v.constrained_on_product_of)],
+        )
+        model.variances[idx].fixed = bool(v.fixed)
+        model.variances[idx].unfix_after = v.unfix_after
+    for name, m in matrices.items():
+        model.insert_matrix(
+            name, torch.as_tensor(np.array(m, dtype=np.float64), device=device)
+        )
+    for e in elements:
+        model.insert_element(
+            e.subcovariance_id, e.name, e.matrix_name, tuple(e.block), e.factor
+        )
+        for vn, transform in e.variance_factors:
+            model.append_variance_to_element(e.name, vn, VarianceTransform[transform.name])
+        if e.parameter_name is not None:
+            model.append_parameter_to_element(e.name, e.parameter_name)
+    return model

@@ -1,17 +1,22 @@
-"""Mixed-model GWAS — exact per-SNP ML refits in the kernel's eigenbasis.
+"""Mixed-model GWAS — batched GLS and exact per-SNP ML refits.
 
 Parity: GWAS::computeGLMWithCovariance (gwas.cpp:787-914): each SNP's
 incidence [X | g] is fit by ML with the null-model covariance kernel,
 warm-started variances, chi2 Wald tests with p = chi2_sf(1, chi2)
 (gwas.cpp:900-903).  After >10 tests the reference disables EM first
 steps and step damping (gwas.cpp:836-841) — i.e. plain Newton — which is
-what the batched path runs from the start.  Port of the ML-refit half of
-dissect_tpu/gwas/mlm.py.
+what the batched path runs from the start.  Port of
+dissect_tpu/gwas/mlm.py:
 
-The null covariance kernel is eigendecomposed once and y/X/G rotate into
-its eigenbasis (gwas.cpp:189-209), where V(theta) = t1*diag(lam) + t2*I
-is diagonal; a Fisher-scoring ML Newton then runs over all SNPs at once,
-O(n) per SNP per iteration.
+  mlm_gwas_fixed_v    variances fixed at the null fit: the per-SNP GLS
+                      solves collapse into block-inverse products over the
+                      SNP axis (--gwas-use-null-variances);
+  mlm_gwas_ml_refit   the null covariance kernel is eigendecomposed once
+                      and y/X/G rotate into its eigenbasis
+                      (gwas.cpp:189-209), where V(theta) = t1*diag(lam) +
+                      t2*I is diagonal; a Fisher-scoring ML Newton then
+                      runs over all SNPs at once, O(n) per SNP per
+                      iteration.
 
 Two deliberate departures from the JAX package:
 
@@ -54,6 +59,59 @@ def _ml_gradient(lam, vi, r):
             torch.sum(pyr * pyr, dim=-1) - torch.sum(vi, dim=-1),
         ],
         dim=-1,
+    )
+
+
+def _gls_core(g, y, x, vi):
+    """Batched GLS with fixed V^-1: block-inverse over the SNP axis."""
+    vix = vi @ x
+    viy = vi @ y
+    a_inv = torch.linalg.inv(x.T @ vix)
+    b0 = a_inv @ (x.T @ viy)
+    y_res_vi = viy - vix @ b0  # Vi (y - X b0) = P0 y
+
+    u = g @ vix  # (M, c)
+    au = u @ a_inv
+    d = torch.sum((g @ vi) * g, dim=1) - torch.sum(u * au, dim=1)
+    d_safe = torch.where(d > 0, d, torch.full_like(d, float("inf")))
+    b_snp = (g @ y_res_vi) / d_safe
+    b_cov = b0[None, :] - au * b_snp[:, None]
+    return b_snp, b_cov, d_safe, au, torch.diagonal(a_inv)
+
+
+def mlm_gwas_fixed_v(genotypes: torch.Tensor, y, x, v_inv) -> GwasResults:
+    """Mixed-model GWAS with variances fixed at the null-model fit
+    (EMMAX-style, --gwas-use-null-variances): the per-SNP GLS solves
+    collapse into block-inverse products over the SNP axis.
+
+    genotypes: (M, n) centered dosage rows on the compute device, in its
+    bulk dtype, as the refit takes them; y, x and v_inv (the (n, n)
+    inverse covariance of the null fit) are moved there.  SEs come
+    straight from the GLS information (no MSE factor); chi2 Wald tests
+    (gwas.cpp:898-903)."""
+    g = genotypes
+    put = lambda a: torch.as_tensor(a).to(device=g.device, dtype=g.dtype)
+    b_snp, b_cov, d, au, a_inv_diag = (
+        _host(v) for v in _gls_core(g, put(y), put(x), put(v_inv))
+    )
+    snp_se = np.sqrt(1.0 / d)
+    chi2 = b_snp**2 * d
+    snp_p = chi2_sf(1, chi2)
+    cov_se = np.sqrt(a_inv_diag[None, :] + au**2 / d[:, None])
+    cov_chi2 = (b_cov / cov_se) ** 2
+    return GwasResults(
+        snp_beta=b_snp,
+        snp_se=snp_se,
+        snp_stat=chi2,
+        snp_p=snp_p,
+        cov_beta=b_cov,
+        cov_se=cov_se,
+        cov_p=chi2_sf(1, cov_chi2),
+        df=1.0,
+        model="MLM-fixedV",
+        # with V fixed the LRT of adding the SNP is exactly
+        # delta(r'V^-1 r) = b^2 d = the Wald chi2
+        group_p=snp_p,
     )
 
 

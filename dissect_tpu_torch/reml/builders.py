@@ -6,16 +6,17 @@ the multi-trait kernel/variance/element construction
 naming: kernels are "K_1".."K_k" (or their given names), the
 environmental identity is "E".
 
-Port of dissect_tpu/reml/builders.py without the squared-exponential
-parameter kernels, residual weights and asymmetric per-trait sets, which
-belong to the dense --reml slice.
+Port of dissect_tpu/reml/builders.py:35-245.  The asymmetric builder for
+per-trait individual sets (build_variance_model_asymmetric) comes with
+multi-trait REML (ROADMAP.md, queue 1 item 5).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from dissect_tpu_torch.model.covariance import (
     CovarianceModel,
@@ -46,6 +47,9 @@ def build_variance_model(
     diagonal: bool = False,
     use_correlations: bool = False,
     environmental_covariance: bool = True,
+    parameter_kernels: Optional[Dict[str, float]] = None,
+    parameter_unfix_after: int = 8,
+    environmental_weights: Optional[np.ndarray] = None,
 ) -> CovarianceModel:
     """Assemble the CovarianceModel for k kernels x T traits.
 
@@ -56,7 +60,19 @@ def build_variance_model(
       Var(E_pj)            = phenoVar_j * (1 - h2_j)          (environment)
       Covar(E_pj-pk)       = 0.5*sqrt(initE_j * initE_k)      (environment)
     Single-trait names drop the _pj suffix (reml.cpp:1056-1062).
+
+    `parameter_kernels` maps squared-exponential kernel names to their
+    initial alpha0 (expKernelParameterInitialFactor / elementsAverage,
+    reml.cpp:1024-1028); their stored matrices hold squared distances D
+    and evaluate as exp(-alpha*D), with the parameter fixed for the
+    first `parameter_unfix_after` Newton steps
+    (remlStepsToUnfixExpKernelParameter, options.cpp:143).
+
+    Kernel matrices may be tensors on a device; the environmental
+    identity (or diag of `environmental_weights`) is made on the first
+    kernel's device, in float64.
     """
+    parameter_kernels = parameter_kernels or {}
     k = len(kernel_matrices)
     n = np.shape(kernel_matrices[0])[0]
     if weights is None:
@@ -65,7 +81,24 @@ def build_variance_model(
 
     for name, mat in zip(kernel_names, kernel_matrices):
         model.insert_matrix(name, mat)
-    identity = np.ones(n) if diagonal else np.eye(n)
+    first = kernel_matrices[0]
+    device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+    if environmental_weights is not None:
+        # per-individual residual weights: E = diag(w) (--weights,
+        # reml.cpp:334-446).  Incompatible with the eigenrotated
+        # diagonal fast path (diag(w) is not diagonal in the eigenbasis)
+        if diagonal:
+            raise ValueError(
+                "environmental weights cannot be combined with a "
+                "diagonalized kernel"
+            )
+        identity = torch.diag(
+            torch.as_tensor(np.asarray(environmental_weights, dtype=np.float64), device=device)
+        )
+    elif diagonal:
+        identity = torch.ones(n, dtype=torch.float64, device=device)
+    else:
+        identity = torch.eye(n, dtype=torch.float64, device=device)
     model.insert_matrix("E", identity)
 
     # variance groups (reml.cpp:737-745)
@@ -90,6 +123,15 @@ def build_variance_model(
                 EffectType.GENETIC,
                 phenotype_variances[j] * heritabilities[j] * weights[i],
             )
+        if kname in parameter_kernels:
+            idx = model.insert_variance(
+                f"alpha0({kname})",
+                "Phenotype_1",
+                ParameterType.PARAMETER,
+                EffectType.OTHER,
+                parameter_kernels[kname],
+            )
+            model.variances[idx].unfix_after = parameter_unfix_after
         for j in range(n_traits):
             for l in range(j + 1, n_traits):
                 deps = [f"Var({kname}_p{j + 1})", f"Var({kname}_p{l + 1})"]
@@ -164,6 +206,8 @@ def build_variance_model(
             model.append_variance_to_element(
                 e.name, f"Var({kname}{suffix(j)})", VarianceTransform.NOCHANGE
             )
+            if kname in parameter_kernels:
+                model.append_parameter_to_element(e.name, f"alpha0({kname})")
             for l in range(j + 1, n_traits):
                 e = model.insert_element(
                     kname, f"{kname}_{j + 1}_{l + 1}", kname, (j, l)

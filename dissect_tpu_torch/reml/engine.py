@@ -1,26 +1,35 @@
-"""The AI-REML engine, diagonal fast path.
+"""The AI-REML engine.
 
 Parity: reml.{h,cpp}; port of dissect_tpu/reml/engine.py.
 
-  * `_blockdiag_quantities` evaluates, for a variance vector theta,
+  * a "quantities" core evaluates, for a variance vector theta,
     everything one Newton step needs — log|V|, log|X'ViX|, y'Py, the
     0.5-scaled gradient and the AI matrix with the crossed-derivatives
-    correction (aiREMLStep's body, reml.cpp:2286-2498) — with V as
-    (n, T, T) per-individual blocks of eigen-rotated kernels, O(n) per
-    step (reml.cpp:480-545, 1896-1908);
+    correction (aiREMLStep's body, reml.cpp:2286-2498, computePMatrix
+    reml.cpp:1836-1909, computeAIMatrix reml.cpp:1963-2051);
   * the host drives the iteration in float64 numpy — EM first step, AI
     steps with stale-relative-logL damping, constraint methods M1/M3,
-    log-logistic reparameterization, convergence tests (computeREML,
-    reml.cpp:1543-1834).
+    log-logistic reparameterization, convergence tests, per-iteration
+    checkpoints (computeREML, reml.cpp:1543-1834).
 
-Departure from JAX: the diagonal fit is O(n) per iteration, so the port
-runs it wholly in float64 on its device (the card, or the CPU).  That
-replaces the JAX package's float32 fit finished by float64 Newton steps
-moved to the JAX CPU device (`_refine_float64`,
-dissect_tpu/reml/engine.py:536-569), and with it the float32 stall
-rescue.  The dense core (`_dense_quantities`), the multi-sample yList
-core, checkpoints and BLUE/BLUP come with the dense --reml slice
-(ROADMAP.md, queue 1 item 2).
+Three cores, chosen by the covariance model:
+  dense      V (Tn, Tn): one Cholesky inverse per iteration, P never
+             materialized (`_dense_quantities`);
+  autodiff   dense V with theta-dependent element matrices
+             (squared-exponential kernels): dV/dtheta from torch.func
+             (`_dense_quantities_autodiff`);
+  diagonal   V as (n, T, T) per-individual blocks of eigen-rotated
+             kernels, O(n) per step (`_blockdiag_quantities`,
+             reml.cpp:480-545, 1896-1908).
+
+Departure from JAX: every fit runs wholly in float64 on its device (the
+card, or the CPU).  The TPU had no fast float64, so the JAX package fits
+in float32 there and finishes with float64 Newton steps on the host CPU
+(`_refine_float64`, dissect_tpu/reml/engine.py:536-607, with its float32
+stall rescue); the H100 runs float64 on its tensor cores, and the JAX
+tests run with x64 on, so both sides compare float64 with float64.  The
+multi-sample yList core serves only the grouped GWAS (ROADMAP.md, queue
+1 item 6).
 """
 
 from __future__ import annotations
@@ -31,10 +40,13 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.func import hessian, jacfwd
 
 from dissect_tpu_torch.linalg.small import MAX_UNROLL_Q, cholesky_diag_small, inv_spd_small
-from dissect_tpu_torch.linalg.spd import lu_inverse_logdet, spd_inverse_logdet
+from dissect_tpu_torch.linalg.spd import fallback_inverse_logdet, spd_inverse_logdet
+from dissect_tpu_torch.linalg.traces import diag_of_abat
 from dissect_tpu_torch.model.covariance import CovarianceModel, ParameterType
+from dissect_tpu_torch.runtime.checkpoint import REMLCheckpoint
 from dissect_tpu_torch.runtime.log import get_logger
 
 
@@ -100,11 +112,11 @@ _HOST_KEYS = ("logdet_v", "logdet_xtvix", "ytpy", "grad", "ai", "finite")
 
 
 class REMLEngine:
-    """One REML/ML fit of V(theta) = sum_e g_e(theta) M_e to (y, X), V
-    diagonal in the kernels' eigenbasis.
+    """One REML/ML fit of V(theta) = sum_e g_e(theta) M_e to (y, X).
 
-    y: (Tn,) trait-major phenotypes; X: (Tn, c) design, both already
-    rotated into the eigenbasis.  Everything runs in float64 on `device`.
+    y: (Tn,) trait-major phenotypes; X: (Tn, c) design (rotated into the
+    kernel's eigenbasis for a diagonal model).  Everything runs in
+    float64 on `device`.
     """
 
     def __init__(
@@ -115,10 +127,6 @@ class REMLEngine:
         options: Optional[REMLOptions] = None,
         device="cuda",
     ):
-        if not model.diagonal:
-            raise NotImplementedError(
-                "dense REML is not ported yet (ROADMAP.md queue 1, item 2)"
-            )
         self.model = model
         self.device = torch.device(device)
         self.dtype = torch.float64
@@ -129,11 +137,18 @@ class REMLEngine:
         self.x = torch.as_tensor(x, device=self.device).to(self.dtype)
         if tuple(self.y.shape) != (self.dimension,):
             raise ValueError(f"y shape {tuple(self.y.shape)} != ({self.dimension},)")
+        if self.cc.has_matrix_params:
+            if self.cc.diagonal:
+                raise NotImplementedError("parameterized kernels are dense-mode only")
+            self._core = _dense_quantities_autodiff
+        else:
+            self._core = _blockdiag_quantities if self.cc.diagonal else _dense_quantities
+        self._final_state = None
         self.log = get_logger()
 
     def _quantities(self, theta: np.ndarray) -> dict:
         t = torch.as_tensor(theta, dtype=self.dtype, device=self.device)
-        return _blockdiag_quantities(
+        return self._core(
             self.cc, t, self.y, self.x, self.options.use_ml, self.options.use_f_matrix
         )
 
@@ -192,7 +207,11 @@ class REMLEngine:
         n = float(self.dimension)
         return (n * theta + theta * theta * grad_full) / n
 
-    def fit(self, initial_theta: Optional[np.ndarray] = None) -> REMLResult:
+    def fit(
+        self,
+        initial_theta: Optional[np.ndarray] = None,
+        checkpoint_path: Optional[str] = None,
+    ) -> REMLResult:
         opts = self.options
         theta = np.array(
             self.model.initial_theta() if initial_theta is None else initial_theta,
@@ -211,6 +230,18 @@ class REMLEngine:
 
         log_likelihood = -1e50
         rel_diff = np.inf
+        start_iteration = 0
+        if checkpoint_path is not None:
+            ckpt = REMLCheckpoint.load(checkpoint_path)
+            if ckpt is not None and ckpt.variance_names == names:
+                theta = ckpt.theta.copy()
+                log_likelihood = ckpt.log_likelihood
+                rel_diff = ckpt.rel_diff
+                start_iteration = ckpt.iteration
+                self.log.message(
+                    f"Resuming REML from checkpoint at iteration {start_iteration}"
+                )
+        self._final_state = None
         success = True
         warnings: List[str] = []
         constrained: List[str] = []
@@ -222,7 +253,7 @@ class REMLEngine:
         sreml = "ML" if opts.use_ml else "REML"
         self.log.message(f"Starting {sreml} iterations...")
 
-        for it in range(opts.max_iterations):
+        for it in range(start_iteration, opts.max_iterations):
             n_iter = it + 1
             # unfix inside-matrix parameters after their step count
             # (unfixVariancesAndParameters, reml.cpp:1684)
@@ -338,6 +369,15 @@ class REMLEngine:
                 + (f"  ({n_constrained} constrained)" if n_constrained else "")
             )
 
+            if checkpoint_path is not None:
+                REMLCheckpoint(
+                    iteration=n_iter,
+                    theta=theta,
+                    log_likelihood=log_likelihood,
+                    variance_names=names,
+                    rel_diff=rel_diff,
+                ).save(checkpoint_path)
+
             # convergence (reml.cpp:1687-1737)
             ll_converged = (ll_diff < 1e-4) and (ll_diff > -1e-2)
             with np.errstate(divide="ignore", invalid="ignore"):
@@ -395,6 +435,201 @@ class REMLEngine:
             logdet_xtvix=float(q["logdet_xtvix"]) if q else 0.0,
         )
 
+    # ----------------------------------------------------------- post-fit ---
+    def _final_device_state(self) -> dict:
+        """The quantities at the fitted variances, computed once and kept
+        for every post-fit output (the JAX package recomputes them for
+        each, dissect_tpu/reml/engine.py:610-612: same values)."""
+        if self._final_state is None:
+            self._final_state = self._quantities(self.final_theta)
+        return self._final_state
+
+    def final_py(self) -> torch.Tensor:
+        """Py at the fitted variances, a float64 tensor on the engine's
+        device — the vector every BLUP flows from (computeSNPsBLUP
+        consumes it, reml.cpp:3098-3356)."""
+        return self._final_device_state()["py"]
+
+    def compute_blue(self):
+        """beta = (X'ViX)^-1 X'Vi y with SEs (computeBLUE, reml.cpp:2924-2981)."""
+        q = self._final_device_state()
+        vix, xtvix_i = q["vix"], q["xtvix_i"]
+        T, n = self.cc.n_traits, self.cc.n
+        if self.cc.diagonal:
+            b = torch.einsum("tic,ti->c", vix, self.y.reshape(T, n))
+        else:
+            b = vix.T @ self.y
+        beta = xtvix_i @ b
+        se = torch.sqrt(torch.diagonal(xtvix_i))
+        return _host(beta), _host(se)
+
+    def _subcovariance(self, sub_id: str):
+        """(element index, coefficient, matrix) of each element of the
+        named sub-covariance, at the fitted variances."""
+        theta = torch.as_tensor(self.final_theta, dtype=self.dtype, device=self.device)
+        g = self.cc.coefficients(theta)
+        return [
+            (ei, g[ei], self.cc.element_matrix(ei, theta))
+            for ei, e in enumerate(self.model.elements)
+            if e.subcovariance_id == sub_id
+        ]
+
+    def compute_blup_individuals(self, sub_id: str) -> np.ndarray:
+        """u_hat = V_sub @ Py for the named sub-covariance
+        (computeIndividualsBLUP, reml.cpp:2983-3096)."""
+        py = self._final_device_state()["py"]
+        n = self.cc.n
+        blup = torch.zeros((self.cc.n_total,), dtype=py.dtype, device=py.device)
+        for ei, g, m in self._subcovariance(sub_id):
+            ti, tj = self.cc.blocks[ei]
+            ri, ci = ti * n, tj * n
+            if self.cc.diagonal:
+                blup[ri : ri + n] += g * m * py[ci : ci + n]
+                if ti != tj:
+                    blup[ci : ci + n] += g * m * py[ri : ri + n]
+            else:
+                blup[ri : ri + n] += g * (m @ py[ci : ci + n])
+                if ti != tj:
+                    blup[ci : ci + n] += g * (m.T @ py[ri : ri + n])
+        return _host(blup)
+
+    def compute_blup_errors(self, sub_id: str) -> Optional[np.ndarray]:
+        """sqrt(diag(Cov_sub P Cov_sub)) — BLUP standard errors
+        (computeBLUPErrors, reml.cpp:3058-3110 via diagonalOfABAt).  Like
+        the reference (reml.cpp:3250), restricted to the dense
+        single-trait path; returns None otherwise.  P and Cov_sub are
+        formed on the engine's device."""
+        if self.cc.diagonal or self.cc.n_traits != 1:
+            return None
+        parts = self._subcovariance(sub_id)
+        if not parts:
+            return None
+        q = self._final_device_state()
+        p = q["vi"] - q["vix"] @ q["xtvix_i"] @ q["vix"].T
+        cov = sum(g * m for _, g, m in parts)
+        d = diag_of_abat(cov, p)
+        return np.sqrt(np.maximum(_host(d), 0.0))
+
+    def residuals(self) -> np.ndarray:
+        """e = sigma2_E * Py — the 'E' sub-covariance applied to Py
+        (mpresiduals.cpp:141: V->multiply("E", Py))."""
+        return self.compute_blup_individuals("E")
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def _finite(logdet_v, ytpy, grad, ai):
+    return (
+        torch.isfinite(logdet_v)
+        & torch.isfinite(ytpy)
+        & torch.all(torch.isfinite(grad))
+        & torch.all(torch.isfinite(ai))
+    )
+
+
+def _inverse_logdet(v):
+    """(V^-1, log|V|): Cholesky when V is PD, else the LU fallback.  The
+    PD test is one host read of the factorization's status per call —
+    the loop reads its step back to the host in any case."""
+    vi, logdet, ok = spd_inverse_logdet(v)
+    if not ok:
+        vi, logdet, _ = fallback_inverse_logdet(v)
+    return vi, logdet
+
+
+def _dense_quantities(cc, theta, y, x, use_ml=False, use_f_matrix=False):
+    """Dense-V REML/ML quantities (aiREMLStep body, reml.cpp:2286-2498)."""
+    v = cc.assemble_dense(theta)
+    vi, logdet_v = _inverse_logdet(v)
+    del v
+    vix = vi @ x
+    xtvix_i, logdet_x = _inverse_logdet(x.T @ vix)
+
+    # P = Vi - ViX (X'ViX)^-1 (ViX)' is Vi minus a rank-c correction:
+    # never materialized, which saves n x n buffers at biobank n
+    def apply_p(z):
+        return vi @ z - vix @ (xtvix_i @ (vix.T @ z))
+
+    py = apply_p(y)
+    ytpy = y @ py
+    mpy = cc.elements_times_vector(py)  # (E, n_total)
+    # tr(P M_e) = tr(Vi M_e) - tr((X'ViX)^-1 (ViX)' M_e (ViX))
+    tr_vi_e = cc.element_traces_dense(vi)
+    mw = cc.elements_times_matrix(vix)  # (E, Tn, c)
+    quad_e = torch.einsum("nc,enk->eck", vix, mw)  # (E, c, c)
+    tr_p_full = tr_vi_e - torch.einsum("ck,eck->e", xtvix_i, quad_e)
+    tr_e = tr_vi_e if use_ml else tr_p_full
+    ypmpy_e = mpy @ py
+    a = cc.coefficient_jacobian(theta)  # (E, K)
+    grad = 0.5 * (a.T @ ypmpy_e - a.T @ tr_e)
+    subvpy = torch.einsum("ei,ek->ik", mpy, a)  # (Tn, K)
+    if use_f_matrix:
+        # expected information: F_kl = 0.5 tr(W dV_k W dV_l) with W = P
+        # (REML-F) or Vi (ML-F) — computeREMLFMatrix/computeMLFMatrix.
+        # This opt-in path does need the dense W.
+        w = vi if use_ml else vi - vix @ xtvix_i @ vix.T
+        wm = torch.stack([w @ cc.placed_dense(ei) for ei in range(cc.n_elements)])
+        t_ef = torch.einsum("eij,fji->ef", wm, wm)
+        ai = 0.5 * a.T @ t_ef @ a
+    else:
+        psubvpy = apply_p(subvpy)
+        ai = 0.5 * subvpy.T @ psubvpy
+        # crossed second-derivative correction (reml.cpp:2159-2218)
+        h = cc.coefficient_hessian(theta)  # (E, K, K)
+        tr_p_e = tr_p_full if use_ml else tr_e
+        ai = ai + 0.25 * torch.einsum("ekl,e->kl", h, tr_p_e - ypmpy_e)
+    return {
+        "logdet_v": logdet_v,
+        "logdet_xtvix": logdet_x,
+        "ytpy": ytpy,
+        "grad": grad,
+        "ai": ai,
+        "finite": _finite(logdet_v, ytpy, grad, ai),
+        "py": py,
+        "vix": vix,
+        "xtvix_i": xtvix_i,
+        "vi": vi,
+    }
+
+
+def _dense_quantities_autodiff(cc, theta, y, x, use_ml=False, use_f_matrix=False):
+    """General dense core for theta-dependent element matrices
+    (squared-exponential kernels, applyExponentialOperator,
+    covariancematrix.cpp:780-960): dV/dtheta comes from
+    `torch.func.jacfwd` of the whole assembly instead of the
+    coefficient-Jacobian shortcut, and the crossed correction from
+    `torch.func.hessian`.  `use_f_matrix` does not apply (as in JAX)."""
+    vi, logdet_v = _inverse_logdet(cc.assemble_dense(theta))
+    vix = vi @ x
+    xtvix_i, logdet_x = _inverse_logdet(x.T @ vix)
+    p = vi - vix @ xtvix_i @ vix.T
+    py = p @ y
+    ytpy = y @ py
+
+    subvpy = jacfwd(lambda th: cc.assemble_dense(th) @ py)(theta)  # (Tn, K)
+    w = vi if use_ml else p
+    tr_k = jacfwd(lambda th: torch.sum(w * cc.assemble_dense(th)))(theta)
+    grad = 0.5 * (subvpy.T @ py - tr_k)
+    ai = 0.5 * subvpy.T @ (p @ subvpy)
+    # crossed second-derivative correction with the full d2V
+    h_quad = hessian(lambda th: py @ (cc.assemble_dense(th) @ py))(theta)
+    h_tr = hessian(lambda th: torch.sum(p * cc.assemble_dense(th)))(theta)
+    ai = ai + 0.25 * (h_tr - h_quad)
+    return {
+        "logdet_v": logdet_v,
+        "logdet_xtvix": logdet_x,
+        "ytpy": ytpy,
+        "grad": grad,
+        "ai": ai,
+        "finite": _finite(logdet_v, ytpy, grad, ai),
+        "py": py,
+        "vix": vix,
+        "xtvix_i": xtvix_i,
+        "vi": vi,
+    }
+
 
 def _blockdiag_quantities(cc, theta, y, x, use_ml=False, use_f_matrix=False):
     """Diagonal-V REML/ML quantities: V as (n, T, T) per-individual
@@ -412,10 +647,7 @@ def _blockdiag_quantities(cc, theta, y, x, use_ml=False, use_f_matrix=False):
     y4 = y.reshape(T, n)
     x4 = x.reshape(T, n, -1)
     vix = torch.einsum("ist,tic->sic", vi, x4)
-    xtvix = torch.einsum("sic,sid->cd", x4, vix)
-    xtvix_i, logdet_x, ok_x = spd_inverse_logdet(xtvix)
-    if not ok_x:
-        xtvix_i, logdet_x, _ = lu_inverse_logdet(xtvix)
+    xtvix_i, logdet_x = _inverse_logdet(torch.einsum("sic,sid->cd", x4, vix))
     viy = torch.einsum("ist,ti->si", vi, y4)
     b = torch.einsum("tic,ti->c", vix, y4)
     coef = xtvix_i @ b
@@ -448,12 +680,7 @@ def _blockdiag_quantities(cc, theta, y, x, use_ml=False, use_f_matrix=False):
         h = cc.coefficient_hessian(theta)
         tr_p_e = cc.element_traces_blockdiag(p_blocks) if use_ml else tr_e
         ai = ai + 0.25 * torch.einsum("ekl,e->kl", h, tr_p_e - ypmpy_e)
-    finite = (
-        torch.isfinite(logdet_v)
-        & torch.isfinite(ytpy)
-        & torch.all(torch.isfinite(grad))
-        & torch.all(torch.isfinite(ai))
-    )
+    finite = _finite(logdet_v, ytpy, grad, ai)
     return {
         "logdet_v": logdet_v,
         "logdet_xtvix": logdet_x,

@@ -115,7 +115,7 @@ def test_options_parse_like_jax(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--reml", "--grm", "g", "--pheno", "p"], "item 2"),
+    (["--reml", "--groups", str(GOLDEN / "groups.txt")] + BASE, "item 6"),
     (["--pca", "--grm", "g"], "item 3"),
     (["--bivar-reml", "--grm", "g"], "item 5"),
     (["--gwas", "--groups", "grp"] + BASE, "item 6"),

@@ -13,7 +13,8 @@ Phases, each of which stops the script on failure:
                each kernel's bound (bytes at the memory rate, float32 flops
                and int8 tensor-core operations each at its pipe's rate);
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
-               and BGEN input and dense `--reml --blue --snp-blup`, on the
+               and BGEN input, dense `--reml --blue --snp-blup`, `--pca`,
+               `--bivar-reml`, regional `--reml` and grouped `--gwas`, on the
                card, against the stored golden files;
   4. main      the PLINK path: a synthetic PLINK cohort at the size users run
                (10,000 individuals x 50,000 SNPs, 1% missing, 2 quantitative
@@ -32,6 +33,22 @@ Phases, each of which stops the script on failure:
                the covariate BLUEs, SNP BLUPs recomputed in float64 and the
                BLUP errors; one REML iteration's Cholesky inverse and the whole
                iteration timed apart;
+  5c. pca      `--pca --bfile --num-eval 20` on the PLINK cohort (K1 builds
+               the GRM in line; the randomized branch), each eigenvalue
+               between 90% of and 1e-6 above a float64 eigh's, orthonormal
+               eigenvectors, the top-k solve and the full eigh timed;
+  5d. bivar    `--bivar-reml` on two traits of the PLINK cohort, the second
+               missing for 1,000 individuals (Tn = 19,000 in float64): the
+               genetic correlation within 4 SE of the simulated 0.5, the joint
+               log-likelihood at least the two single-trait fits' sum, one
+               iteration and its Cholesky inverse timed apart;
+  5e. regional `--reml --groups` on four 2,000-SNP regions, one holding all
+               causal SNPs: its Regional-GRM LRT p < 1e-10, the others' > 1e-6;
+  5f. grouped  `--gwas --groups` on 5-SNP groups, OLS and under `--grm`, causal
+               groups enriched among the smallest GROUPPVs, and `--rgwas` on
+               100-SNP groups, its SNPs enriched for causal ones.  Every step of
+               5c-5f runs through main() with the launch counters zeroed just
+               before and read just after;
   6. bgen      the BGEN path: a synthetic imputed cohort of the same size in
                UK Biobank's format (BGEN layout 2, 8-bit, zlib), dosages blurred
                off the hard calls, 1% missing, the same covariate and phenotype
@@ -68,6 +85,10 @@ N_SNPS = 50_000
 N_CAUSAL = 500
 SEED = 20261016
 BGEN_SNPS = 50_000
+N_MISSING_TRAIT2 = 1_000  # the bivariate phase's second trait misses these
+N_PCS = 20
+GROUP_SNPS = 5       # the grouped GWAS phase: groups of consecutive SNPs
+REGION_SNPS = 2_000  # the regional phase: four groups of this many SNPs
 GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's and K2's row count on the main paths
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
@@ -487,8 +508,46 @@ def phase_golden(workdir):
          + ["--out", f"{out}"])
     for name in ("golden.reml", "golden.blue.mean", "golden.GRM.blup.snps"):
         diff_text_files(workdir / name, golden / name, GOLDEN_REML_RTOL)
-    log("golden cohort on the card: GRM, OLS and mixed-model GWAS, the BGEN GRM, and "
-        "dense REML with BLUE and SNP BLUPs, agree with tests/golden")
+    golden_pca(workdir, golden, base)
+    # bivariate REML, regional REML and grouped GWAS, in float64 on the card
+    main(["--bivar-reml", "--grm", str(golden / "golden"), "--bfile", str(golden / "cohort"),
+          "--pheno", str(golden / "pheno2.txt"), "--pheno-cols", "1,2", "--out", f"{out}.bi"])
+    main(["--reml", "--groups", str(golden / "groups.txt")] + base + ["--out", f"{out}.reg"])
+    main(["--gwas", "--groups", str(golden / "groups.txt")] + base + ["--out", f"{out}.grp"])
+    for name in ("golden.bi.reml", "golden.bi.correlations", "golden.reg.regional",
+                 "golden.reg.lrt", "golden.grp.multi.gwas.snps"):
+        diff_text_files(workdir / name, golden / name, GOLDEN_REML_RTOL)
+    log("golden cohort on the card: GRM, OLS and mixed-model GWAS, the BGEN GRM, dense "
+        "REML with BLUE and SNP BLUPs, PCA, bivariate and regional REML, and grouped GWAS "
+        "agree with tests/golden")
+
+
+def golden_pca(workdir, golden, base):
+    """`--pca --grm golden --num-eval 5` (the full-eigh branch, 5 * 8 >=
+    24): eigenvalues equal numpy's eigvalsh of the golden GRM at rtol
+    1e-6, and the golden file, written by a float32 eigh, within twice the
+    float32 solver bound; eigenvectors the same, up to sign."""
+    from dissect_tpu_torch.analysis.dispatcher import main
+    from dissect_tpu_torch.io.grm_io import read_grm
+
+    main(["--pca", "--grm", str(golden / "golden"), "--num-eval", "5"] + base
+         + ["--out", str(workdir / "golden")])
+    w, v = np.linalg.eigh(read_grm(str(golden / "golden"))["kernel"].astype(np.float64))
+    ours = np.loadtxt(workdir / "golden.pca.eigenvalues")
+    np.testing.assert_allclose(ours, w[::-1], rtol=1e-6, atol=1e-9)
+    old = np.loadtxt(golden / "golden.pca.eigenvalues")
+    scale = float(np.max(np.abs(old)))
+    eps32 = float(np.finfo(np.float32).eps)
+    np.testing.assert_allclose(ours, old, rtol=0, atol=2 * eps32 * scale)
+    vectors = lambda path: np.array(
+        [[float(x) for x in ln.split()[2:]] for ln in Path(path).read_text().splitlines()])
+    new_v = vectors(workdir / "golden.pca.eigenvectors")
+    old_v = vectors(golden / "golden.pca.eigenvectors")
+    signs = np.sign(np.sum(new_v * old_v, axis=0))
+    gap = float(np.min(np.abs(np.diff(old[:6]))))
+    np.testing.assert_allclose(new_v * signs, old_v, rtol=0, atol=2 * eps32 * scale / gap)
+    signs = np.sign(np.sum(new_v * v[:, ::-1][:, :5], axis=0))
+    np.testing.assert_allclose(new_v * signs, v[:, ::-1][:, :5], rtol=0, atol=1e-7)
 
 
 def diff_text_files(ours, ref, rtol):
@@ -545,6 +604,28 @@ def _write_traits(workdir, gen, causal_rows, ids, device):
     with open(workdir / "qcovar.txt", "w") as fh:
         for i, (fid, iid) in enumerate(ids):
             fh.write(f"{fid} {iid} {q_h[i, 0]:.10f} {q_h[i, 1]:.10f}\n")
+    return zc, genetic, qcov, y_h
+
+
+def _write_second_trait(workdir, gen, zc, genetic, qcov, y1, ids, device):
+    """pheno2.txt: trait 1 as written, and trait 2 with h2 = 0.5 and
+    genetic correlation 0.5 with trait 1 on the same causal rows
+    (covariate effects 0.2 and 0.1), NA for the last N_MISSING_TRAIT2
+    individuals.  Its draws come after every earlier draw of `gen`."""
+    n = zc.shape[1]
+    beta = torch.randn((zc.shape[0],), generator=gen, device=device, dtype=torch.float64)
+    noise = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+    other = beta @ zc
+    other = other - (other @ genetic) / (genetic @ genetic) * genetic
+    other = other / other.std() * math.sqrt(0.5)
+    genetic2 = 0.5 * genetic + math.sqrt(0.75) * other
+    y2 = 0.5 + qcov @ torch.tensor([0.2, 0.1], device=device, dtype=torch.float64) + genetic2 \
+        + noise * math.sqrt(0.5)
+    y2_h = y2.cpu().numpy()
+    with open(workdir / "pheno2.txt", "w") as fh:
+        for i, (fid, iid) in enumerate(ids):
+            second = "NA" if i >= n - N_MISSING_TRAIT2 else f"{y2_h[i]:.10f}"
+            fh.write(f"{fid} {iid} {y1[i]:.10f} {second}\n")
 
 
 def _snp_infos(m):
@@ -556,7 +637,8 @@ def _snp_infos(m):
 
 def write_cohort(workdir, device):
     """The synthetic PLINK cohort, made on the card from SEED: PLINK files,
-    a 2-column quantitative covariate file and the phenotype."""
+    a 2-column quantitative covariate file, the phenotype, and the two
+    traits of the bivariate phase (pheno2.txt)."""
     from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, write_plink
 
     gen = torch.Generator(device=device)
@@ -569,7 +651,8 @@ def write_cohort(workdir, device):
     causal = torch.randperm(m, generator=gen, device=device)[:N_CAUSAL].sort().values
     d = torch.as_tensor(dosage[causal.cpu().numpy()], device=device)
     ids = [(f"F{i}", f"I{i}") for i in range(n)]
-    _write_traits(workdir, gen, d, ids, device)
+    zc, genetic, qcov, y1 = _write_traits(workdir, gen, d, ids, device)
+    _write_second_trait(workdir, gen, zc, genetic, qcov, y1, ids, device)
     data = PlinkData(
         snps=_snp_infos(m),
         individuals=[IndividualInfo(fid, iid) for fid, iid in ids],
@@ -670,7 +753,7 @@ def phase_checks(workdir, causal, device):
     # 512-SNP subset: refit through K3 vs through its plain version, on the card
     data = read_plink(str(workdir / "cohort"))
     y, x = _traits(workdir, data.individual_keys)
-    from dissect_tpu_torch.analysis.dispatcher import _centered_genotypes
+    from dissect_tpu_torch.gwas.grouped import centered_genotypes
     from dissect_tpu_torch.model.kernels import Kernel, KernelType
     from dissect_tpu_torch.io.phenotype import Phenotype
     from dissect_tpu_torch.io.covariate import Covariate
@@ -689,7 +772,7 @@ def phase_checks(workdir, causal, device):
     idx = np.arange(0, N_SNPS, N_SNPS // 512)[:512]
     stats = data.stats()
     dosage = torch.as_tensor(data.decode_chunk(0, N_SNPS)[idx], device=device)
-    z = _centered_genotypes(dosage, torch.as_tensor(stats.mean[idx], device=device))
+    z = centered_genotypes(dosage, torch.as_tensor(stats.mean[idx], device=device))
     z = z.to(torch.float32)
     args = (y, x, kern.eigenvalues, kern.eigenvectors, theta)
     fused = mlm_gwas_ml_refit(z, *args)
@@ -730,28 +813,16 @@ def phase_reml(workdir, counters, null_variances, device):
     fitted variances; BLUP errors finite and positive.  Then one
     iteration's parts at the fitted variances, timed apart: the Cholesky
     inverse of V, and the whole quantities call."""
-    from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.io.bed import read_plink
     from dissect_tpu_torch.io.grm_io import read_grm
     from dissect_tpu_torch.linalg.spd import spd_inverse_logdet
     from dissect_tpu_torch.reml.builders import build_variance_model
     from dissect_tpu_torch.reml.engine import REMLEngine
-    from dissect_tpu_torch.runtime.timers import timers
 
-    args = ["--reml", "--bfile", str(workdir / "cohort"), "--pheno", str(workdir / "pheno.txt"),
-            "--qcovar", str(workdir / "qcovar.txt"), "--blue", "--snp-blup", "--indiv-blup",
-            "--indiv-blup-error", "--out", str(workdir / "reml")]
-    for fn in counters.values():
-        fn.launches = 0
-    counters["fused_refit_moments"].launches_by_rows.clear()
-    torch.cuda.reset_peak_memory_stats(device)
-    t0 = time.monotonic()
-    out = main(args)
-    seconds = {"reml": time.monotonic() - t0}
-    seconds.update({f"reml_{k}": v for k, v in timers.elapsed.items()})
-    launches = {name: fn.launches for name, fn in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    log("reml path launches: " + json.dumps(launches))
+    out, launches, seconds, peak_gb = _drive(
+        "reml", ["--reml"] + _cohort_args(workdir) + [
+            "--blue", "--snp-blup", "--indiv-blup", "--indiv-blup-error",
+            "--out", str(workdir / "reml")], counters, device)
     check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
           f"K1 launched {launches['grm_fused_triangle_update']} times on the reml path")
     res = out.result
@@ -820,6 +891,219 @@ def phase_reml(workdir, counters, null_variances, device):
     }
     log("reml path: " + json.dumps(summary))
     return launches, seconds, summary
+
+
+# ---------------------------------------------------------------- phase 5c --
+def _drive(tag, argv, counters, device):
+    """One CLI run through main(), every launch counter zeroed just before
+    and read just after, the peak device memory reset before it.  Returns
+    (its output, launches, seconds with the dispatcher's phases, peak GB)."""
+    from dissect_tpu_torch.analysis.dispatcher import main
+    from dissect_tpu_torch.runtime.timers import timers
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["fused_refit_moments"].launches_by_rows.clear()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.monotonic()
+    out = main(argv)
+    seconds = {tag: time.monotonic() - t0}
+    seconds.update({f"{tag}_{k}": v for k, v in timers.elapsed.items()})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log(f"{tag} path launches: " + json.dumps(launches))
+    return out, launches, seconds, torch.cuda.max_memory_allocated(device) / 1e9
+
+
+def _cohort_args(workdir):
+    return ["--bfile", str(workdir / "cohort"), "--pheno", str(workdir / "pheno.txt"),
+            "--qcovar", str(workdir / "qcovar.txt")]
+
+
+def phase_pca(workdir, counters, device):
+    """`--pca --bfile --num-eval 20` on the PLINK cohort: K1 builds the GRM
+    in line (25 launches), then the randomized branch (20 * 8 < 10,000):
+    13 subspace iterations and Rayleigh-Ritz in float64.  The cohort has
+    no population structure, so its top eigenvalues crowd at the
+    Marchenko-Pastur edge and the iteration does not converge: each value
+    lies between 90% of its exact eigenvalue (a float64 eigh of the same
+    GRM, built again in process) and that eigenvalue plus 1e-6 relative.
+    The eigenvectors are orthonormal to 1e-8.  Returns the GRM kernel for
+    the next phase."""
+    from dissect_tpu_torch.io.bed import read_plink
+    from dissect_tpu_torch.model.kernels import grm_from_plink
+
+    pca, launches, seconds, peak = _drive(
+        "pca", ["--pca", "--bfile", str(workdir / "cohort"), "--num-eval", str(N_PCS),
+                "--out", str(workdir / "pca")], counters, device)
+    check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the pca path")
+    check(pca.all_eigenvalues is None and pca.eigenvalues.shape == (N_PCS,),
+          "--pca did not take the randomized branch")
+    kern = grm_from_plink(read_plink(str(workdir / "cohort")), device=device)
+    k64 = kern.matrix.double()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    exact = torch.linalg.eigvalsh(k64)
+    torch.cuda.synchronize()
+    seconds["pca_full_eigh"] = time.monotonic() - t0
+    del k64
+    exact = torch.flip(exact, dims=(0,))[:N_PCS].cpu().numpy()
+    ratio = pca.eigenvalues / exact
+    log(f"pca: top-{N_PCS} eigenvalues {pca.eigenvalues[:3].tolist()}... against exact "
+        f"{exact[:3].tolist()}...; smallest ratio {ratio.min():.4f}, largest {ratio.max():.9f}; "
+        f"top-k solve {seconds['pca_PCA']:.3f} s, full float64 eigh {seconds['pca_full_eigh']:.3f} s")
+    check(np.all(pca.eigenvalues <= exact * (1.0 + 1e-6)), "a top-k eigenvalue exceeds the exact one")
+    check(np.all(ratio >= 0.9), f"top-k eigenvalues reach only {ratio.min():.3f} of the exact ones")
+    v = pca.eigenvectors
+    ortho = float(np.max(np.abs(v.T @ v - np.eye(N_PCS))))
+    check(np.isfinite(v).all() and ortho <= 1e-8, f"eigenvectors not orthonormal ({ortho:.2e})")
+    summary = {"min_ratio": float(ratio.min()), "max_ratio": float(ratio.max()),
+               "orthonormality_err": ortho, "eigenvalues": pca.eigenvalues.tolist(),
+               "exact": exact.tolist(), "peak_device_gb": peak}
+    return launches, seconds, summary, kern
+
+
+def phase_bivar(workdir, counters, kern, device):
+    """`--bivar-reml --bfile --pheno pheno2.txt --pheno-cols 1,2 --qcovars
+    qcovar.txt,qcovar.txt`: K1 builds the GRM in line (25 launches); trait
+    2 misses its last 1,000 individuals, so the per-trait sets differ and
+    the joint V has Tn = 19,000 rows in float64.  Checks: the fit
+    converged; Cor(GRM_p1-2) within 4 SE of the simulated 0.5; the joint
+    log-likelihood at least the sum of the two single-trait dense fits'
+    (each on its own individuals and covariates) less 1e-6 |logL|, since
+    the joint model contains the independent one.  Then one iteration at
+    the fitted variances and its Cholesky inverse, timed apart."""
+    from dissect_tpu_torch.io.covariate import read_covariates
+    from dissect_tpu_torch.io.phenotype import read_phenotype
+    from dissect_tpu_torch.linalg.spd import spd_inverse_logdet
+    from dissect_tpu_torch.reml.engine import REMLEngine
+    from dissect_tpu_torch.reml.multi import MultiREML
+    from dissect_tpu_torch.reml.single import SingleREML
+
+    pheno2, qcovar = str(workdir / "pheno2.txt"), str(workdir / "qcovar.txt")
+    out, launches, seconds, peak = _drive(
+        "bivar", ["--bivar-reml", "--bfile", str(workdir / "cohort"), "--pheno", pheno2,
+                  "--pheno-cols", "1,2", "--qcovars", f"{qcovar},{qcovar}",
+                  "--out", str(workdir / "bivar")], counters, device)
+    check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the bivar path")
+    res = out.result
+    check(res.success, "bivariate REML did not converge")
+    n_total = len(out.individual_keys)
+    check(n_total == 2 * N_INDIVIDUALS - N_MISSING_TRAIT2, f"Tn = {n_total}")
+    cor = next(r for r in out.correlations if r.name == "Cor(GRM_p1-2)")
+    log(f"bivar: Cor(GRM_p1-2) = {cor.value:.4f} +- {cor.std_error:.4f} (simulated 0.5); "
+        f"{res.n_iterations} iterations, logL {res.log_likelihood:.6f}")
+    check(abs(cor.value - 0.5) <= 4 * cor.std_error, "genetic correlation not within 4 SE of 0.5")
+    phenos = [read_phenotype(pheno2, c) for c in (1, 2)]
+    covs = [read_covariates(None, qcovar, default_keys=p.keys) for p in phenos]
+    singles = []
+    for pheno, cov in zip(phenos, covs):
+        fit = SingleREML([kern], pheno, cov, device=device).compute(compute_blue=False)
+        check(fit.result.success, "a single-trait REML did not converge")
+        singles.append(fit.result.log_likelihood)
+    bound = sum(singles) - 1e-6 * abs(res.log_likelihood)
+    log(f"bivar: joint logL {res.log_likelihood:.6f} >= single-trait sum {sum(singles):.6f} "
+        f"less 1e-6 |logL|")
+    check(res.log_likelihood >= bound, "the joint fit is worse than the two single-trait fits")
+
+    joint = MultiREML([kern], phenos, covs, device=device)
+    engine = REMLEngine(joint.build_model(), joint.y, joint.x, device=device)
+    check(engine.dimension == n_total, "the timing model is not the fitted one")
+    iteration_ms = time_ms(lambda: engine._quantities(res.variances), iters=2, warmup=1)
+    v = engine.cc.assemble_dense(torch.as_tensor(res.variances, device=device))
+    inverse_ms = time_ms(lambda: spd_inverse_logdet(v), iters=2, warmup=1)
+    del v, engine, joint
+    summary = {
+        "variances": dict(zip(res.variance_names, res.variances.tolist())),
+        "genetic_correlation": [cor.value, cor.std_error],
+        "iterations": res.n_iterations, "log_likelihood": res.log_likelihood,
+        "single_trait_log_likelihoods": singles, "n_total": n_total,
+        "seconds_per_iteration": seconds.get("bivar_REML", float("nan")) / res.n_iterations,
+        "iteration_ms": iteration_ms, "cholesky_inverse_ms": inverse_ms, "peak_device_gb": peak,
+    }
+    log("bivar path: " + json.dumps(summary))
+    return launches, seconds, summary
+
+
+def phase_regional(workdir, causal, counters, device):
+    """`--reml --bfile --groups` on four groups of 2,000 SNPs: the first
+    holds all 500 causal SNPs and the first 1,500 others, the other three
+    the next 6,000 SNPs without a causal one.  K1 launches 25 times for the
+    whole GRM and once for each region's.  The causal region's
+    Regional-GRM LRT gives p < 1e-10, each null region's p > 1e-6."""
+    names = [f"rs{i:06d}" for i in range(N_SNPS)]
+    others = [nm for nm in names if nm not in causal]
+    first = sorted(causal) + others[: REGION_SNPS - len(causal)]
+    rest = others[REGION_SNPS - len(causal):]
+    regions = {"causal": first}
+    for r in range(3):
+        regions[f"null{r + 1}"] = rest[r * REGION_SNPS:(r + 1) * REGION_SNPS]
+    with open(workdir / "regions.txt", "w") as fh:
+        for group, snps in regions.items():
+            for nm in snps:
+                fh.write(f"{nm} {group}\n")
+    results, launches, seconds, peak = _drive(
+        "regional", ["--reml", "--groups", str(workdir / "regions.txt")]
+        + _cohort_args(workdir) + ["--out", str(workdir / "regional")], counters, device)
+    expect_k1 = -(-N_SNPS // GRM_CHUNK) + len(regions) * -(-REGION_SNPS // GRM_CHUNK)
+    check(launches["grm_fused_triangle_update"] == expect_k1,
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the regional path, "
+          f"expected {expect_k1}")
+    check(list(results) == list(regions), f"regions {list(results)}")
+    pvalues = {}
+    for group, res in results.items():
+        check(res["full"].result.success, f"region {group}: the full fit did not converge")
+        row = next(r for r in res["lrts"] if r["removed"] == "Regional-GRM")
+        check(row["converged"], f"region {group}: the reduced fit did not converge")
+        pvalues[group] = row["p_value"]
+    log("regional: Regional-GRM LRT p-values " + json.dumps(pvalues))
+    check(pvalues["causal"] < 1e-10, "the causal region's Regional-GRM is not significant")
+    check(all(p > 1e-6 for g, p in pvalues.items() if g != "causal"),
+          "a null region's Regional-GRM is significant")
+    return launches, seconds, {"p_values": pvalues, "peak_device_gb": peak}
+
+
+def phase_grouped(workdir, causal, counters, device):
+    """`--gwas --groups` on groups of 5 consecutive SNPs, OLS and under
+    `--grm` of the main path: in each, groups holding a causal SNP at least
+    5x enriched among the 100 smallest GROUPPVs.  Then `--rgwas
+    --rgwas-group-size 100 --significance-threshold 1e-5`: at least 5 SNPs
+    reported, at least 10x enriched for causal ones."""
+    names = [f"rs{i:06d}" for i in range(N_SNPS)]
+    with open(workdir / "groups5.txt", "w") as fh:
+        for i, nm in enumerate(names):
+            fh.write(f"{nm} G{i // GROUP_SNPS}\n")
+    causal_groups = {f"G{int(nm[2:]) // GROUP_SNPS}" for nm in causal}
+    base_rate = len(causal_groups) / (N_SNPS // GROUP_SNPS)
+    seconds, summary, peaks = {}, {}, {}
+    for tag, extra in (("grouped_ols", []), ("grouped_grm", ["--grm", str(workdir / "grm")])):
+        results, _, secs, peaks[tag] = _drive(
+            tag, ["--gwas", "--groups", str(workdir / "groups5.txt")] + extra
+            + _cohort_args(workdir) + ["--out", str(workdir / tag)], counters, device)
+        seconds.update(secs)
+        check(len(results) == N_SNPS // GROUP_SNPS, f"{tag}: {len(results)} groups")
+        pv = {g: r.f_p_value for g, r in results.items()}
+        check(all(np.isfinite(p) and p >= 0 for p in pv.values()), f"{tag}: GROUPPV not finite")
+        top = sorted(pv, key=pv.get)[:100]
+        hits = sum(1 for g in top if g in causal_groups)
+        enrichment = hits / 100 / base_rate
+        log(f"{tag}: {hits} of the 100 smallest GROUPPVs hold a causal SNP "
+            f"({enrichment:.1f}x the base rate {base_rate:.4f})")
+        check(enrichment >= 5.0, f"{tag}: causal groups not enriched")
+        summary[tag] = {"causal_in_top100": hits, "enrichment": enrichment}
+    significant, _, secs, peaks["rgwas"] = _drive(
+        "rgwas", ["--rgwas", "--rgwas-group-size", "100", "--significance-threshold", "1e-5"]
+        + _cohort_args(workdir) + ["--out", str(workdir / "rgwas")], counters, device)
+    seconds.update(secs)
+    hits = sum(1 for nm in significant if nm in causal)
+    enrichment = hits / max(len(significant), 1) / (N_CAUSAL / N_SNPS)
+    log(f"rgwas: {len(significant)} SNPs reported, {hits} causal ({enrichment:.1f}x)")
+    check(len(significant) >= 5, "--rgwas reported fewer than 5 SNPs")
+    check(enrichment >= 10.0, "--rgwas SNPs not enriched for causal ones")
+    summary["rgwas"] = {"reported": len(significant), "causal": hits, "enrichment": enrichment}
+    summary["peak_device_gb"] = peaks
+    return seconds, summary
 
 
 # ----------------------------------------------------------------- phase 6 --
@@ -930,6 +1214,19 @@ def main():
             plink_dir, counters, summary["plink"]["null_variances"], device)
         seconds.update(reml_seconds)
         peak_gb["reml"] = summary["reml"]["peak_device_gb"]
+        pca_launches, path_seconds, summary["pca"], kern = phase_pca(plink_dir, counters, device)
+        seconds.update(path_seconds)
+        bivar_launches, path_seconds, summary["bivar"] = phase_bivar(
+            plink_dir, counters, kern, device)
+        seconds.update(path_seconds)
+        del kern
+        regional_launches, path_seconds, summary["regional"] = phase_regional(
+            plink_dir, causal, counters, device)
+        seconds.update(path_seconds)
+        path_seconds, summary["grouped"] = phase_grouped(plink_dir, causal, counters, device)
+        seconds.update(path_seconds)
+        for tag in ("pca", "bivar", "regional"):
+            peak_gb[tag] = summary[tag]["peak_device_gb"]
         shutil.rmtree(plink_dir, ignore_errors=True)
 
         t0 = time.monotonic()
@@ -957,7 +1254,9 @@ def main():
 
     for entry in kernels:
         by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]],
-                   "reml": reml_launches[entry["name"]]}
+                   "reml": reml_launches[entry["name"]], "pca": pca_launches[entry["name"]],
+                   "bivar": bivar_launches[entry["name"]],
+                   "regional": regional_launches[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "fused_refit_moments":

@@ -7,11 +7,12 @@ Port of the pieces of dissect_tpu/analysis/dispatcher.py on the
 family (`--make-grm-mr`, `--add-grms`, `--filter-matrix`,
 `--gcta-grms-gz`, `--grm-epi`), of dense single-trait `--reml` (BLUE,
 individual and SNP BLUPs, extra random-effect kernels, weights, reduced
-models, initial variances, checkpoints, subsample pre-fits) and of the
+models, initial variances, checkpoints, subsample pre-fits), of the
 GWAS routes that need a dense V (extra kernels,
-`--gwas-use-null-variances`, `--bfile-grm-list`/`--bgen-grm-list`), on
-one device.  Every other analysis raises NotImplementedError naming its
-ROADMAP.md item.
+`--gwas-use-null-variances`, `--bfile-grm-list`/`--bgen-grm-list`), of
+`--pca`, `--bivar-reml`/`--multi-reml`, regional `--reml`, grouped
+`--gwas --groups/--group-all` and `--rgwas`, on one device.  Every
+other analysis raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,12 +22,20 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from dissect_tpu_torch.gwas.grouped import (
+    CenteredRows,
+    centered_genotypes,
+    flag_correlated_in_groups,
+    grouped_gwas,
+    recursive_gwas,
+)
 from dissect_tpu_torch.gwas.mlm import mlm_gwas_fixed_v, mlm_gwas_ml_refit
 from dissect_tpu_torch.gwas.ols import GwasResults, ols_gwas
 from dissect_tpu_torch.io import grm_io
 from dissect_tpu_torch.io.bed import PlinkData, read_plink
 from dissect_tpu_torch.io.bgen import BgenData, read_bgen
 from dissect_tpu_torch.io.covariate import read_covariates
+from dissect_tpu_torch.io.groups import by_all, by_group_file, by_position
 from dissect_tpu_torch.io.ids import intersection_keeping_order
 from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.io.phenotype import n_phenotype_columns, read_phenotype
@@ -39,7 +48,10 @@ from dissect_tpu_torch.model.kernels import (
     kernel_from_multi_discrete,
     kernel_squared_exponential,
 )
+from dissect_tpu_torch.pca.pca import compute_pca
+from dissect_tpu_torch.reml.multi import MultiREML
 from dissect_tpu_torch.reml.reduced import write_lrt_table
+from dissect_tpu_torch.reml.regional import compute_regional
 from dissect_tpu_torch.reml.single import SingleREML
 from dissect_tpu_torch.reml.snp_blup import compute_snp_blup, write_snp_blup
 from dissect_tpu_torch.reml.summary import write_blue, write_blup_indiv, write_reml_summary
@@ -65,20 +77,6 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy().astype(np.float64)
 
 
-def _centered_genotypes(dosage: torch.Tensor, mean: torch.Tensor) -> torch.Tensor:
-    """Missing-zeroed mean-centered rows of an (m, N) chunk, for both hard
-    calls (int8, -1 missing) and imputed dosages (float, NaN missing), in
-    float64 on the chunk's device; the caller casts to its bulk dtype.
-    Centering on the device keeps the host at the raw chunk instead of
-    M x N float64."""
-    if dosage.is_floating_point():
-        observed = torch.isfinite(dosage)
-    else:
-        observed = dosage >= 0
-    centered = dosage.to(torch.float64) - mean.to(torch.float64)[:, None]
-    return torch.where(observed, centered, torch.zeros_like(centered))
-
-
 def _chunked_gwas(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, device, dtype,
                   chunk: Optional[int] = None, row_variance: bool = False):
     """Run a per-SNP GWAS solver over SNP blocks and concatenate — bounds
@@ -93,7 +91,7 @@ def _chunked_gwas(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, device
         stop = min(start + chunk, data.n_snps)
         dosage = torch.as_tensor(data.decode_chunk(start, stop)).to(device)
         mu = torch.as_tensor(mean[start:stop]).to(device)
-        z = _centered_genotypes(dosage, mu)
+        z = centered_genotypes(dosage, mu)
         if row_variance:
             variances.append(_host(torch.var(z, dim=1, unbiased=True)))
         parts.append(fn(z.to(dtype)))
@@ -434,6 +432,19 @@ class Analysis:
             prefix, _host(kern.matrix), _host(kern.counts), kern.individual_keys, kern.snp_names
         )
 
+    def make_pca(self):
+        """--pca (analysis.cpp:233-243): the GRM stored or built in line,
+        then its top --num-eval eigenpairs."""
+        a = self.args
+        with timers.phase("LoadGRM" if (a.grm or a.gcta_grms_gz) else "ComputeGRM"):
+            kern = self.load_grm()
+        with timers.phase("PCA"):
+            pca = compute_pca(kern, n_components=a.num_eval)
+        with timers.phase("WritePCA"):
+            pca.write(a.out)
+        self.log.message(f"PCA stored at [ {a.out}.pca.* ]")
+        return pca
+
     def extra_kernels(self, base_kernel: Kernel) -> List[Kernel]:
         """Additional random-effect kernels from options
         (addKernelsUsingOptions, auxiliar.h:276-310): discrete /
@@ -508,7 +519,7 @@ class Analysis:
         one output set per column."""
         a = self.args
         if (a.region_size or a.groups) and (a.bfile or a.bfile_list):
-            raise _not_ported("regional REML (--reml --region-size / --groups)", "item 6")
+            return self.make_regional_reml()
         phenos = self.load_phenotypes()
         if len(phenos) == 1:
             return self._reml_one(phenos[0])
@@ -624,14 +635,103 @@ class Analysis:
                 with timers.phase("WriteREML"):
                     write_snp_blup(a.out + tag, k.name, blup_result)
 
+    def make_regional_reml(self):
+        """Regional heritability (--reml --region-size/--groups,
+        singlereml.cpp:230-360): per-region Global/Regional-GRM fits with
+        LRTs, written as an .lrt table and a .regional summary."""
+        a = self.args
+        with timers.phase("LoadGenotypes"):
+            data = self.load_genotype()
+            data.dosages()  # decoded once: every region filters from it
+        pheno = self.load_phenotypes()[0]
+        covar = self.load_covariate(pheno.keys)
+        if a.groups:
+            grouping = by_group_file(data, a.groups)
+        else:
+            grouping = by_position(data, a.region_size * 1000, a.region_overlap * 1000)
+        grouping = {g: snps for g, snps in grouping.items() if len(snps) >= a.min_snps_region}
+        with timers.phase("ComputeGRM"):
+            grm = grm_from_plink(data, device=self.device)
+        results = compute_regional(
+            data, grouping, pheno, covar, self.options.reml_options(), grm=grm,
+            device=self.device,
+        )
+        all_lrts = []
+        for group, res in results.items():
+            for row in res["lrts"]:
+                all_lrts.append({**row, "removed": f"{group}:{row['removed']}"})
+        with timers.phase("WriteREML"):
+            write_lrt_table(a.out, all_lrts)
+            with result_open(a.out + ".regional") as fh:
+                fh.write("REGION NSNPS PROPORTION GLOBAL_VAR REGIONAL_VAR E_VAR SUCCESS\n")
+                for group, res in results.items():
+                    r = res["full"].result
+                    ok = r.success
+                    gv = r.variance("Var(Global-GRM)") if ok else float("nan")
+                    rv = r.variance("Var(Regional-GRM)") if ok else float("nan")
+                    ev = r.variance("Var(E)") if ok else float("nan")
+                    fh.write(
+                        f"{group} {res['n_snps']} {res['proportion']:.4g} "
+                        f"{gv:.6g} {rv:.6g} {ev:.6g} {int(ok)}\n"
+                    )
+        self.log.message(
+            f"regional REML stored at [ {a.out}.regional / {a.out}.lrt ] "
+            f"({len(results)} regions)"
+        )
+        return results
+
+    def make_multi_reml(self):
+        """--bivar-reml / --multi-reml (multireml.cpp:57-137): one joint
+        fit of the traits in --pheno-cols (all columns by default; the
+        first two for --bivar-reml), with per-trait --covars/--qcovars."""
+        a = self.args
+        stored = a.grm or a.gcta_grms_gz
+        with timers.phase("LoadGRM" if stored else "ComputeGRM"):
+            kern = self.load_grm()
+        if a.pheno_cols:
+            columns = [int(c) for c in a.pheno_cols.split(",")]
+        else:
+            columns = list(range(1, n_phenotype_columns(a.pheno) + 1))
+        if a.bivarREML and len(columns) != 2:
+            columns = columns[:2]
+        phenos = self.load_phenotypes(columns)
+        covariates = None
+        if a.covars or a.qcovars:
+            cfiles = a.covars.split(",") if a.covars else [None] * len(phenos)
+            qfiles = a.qcovars.split(",") if a.qcovars else [None] * len(phenos)
+            covariates = [
+                read_covariates(c or None, q or None, default_keys=p.keys)
+                for c, q, p in zip(cfiles, qfiles, phenos)
+            ]
+        sreml = MultiREML(
+            [kern], phenos, covariates, self.options.reml_options(),
+            use_correlations=a.use_correlations,
+            environmental_covariance=not a.no_environment_cov,
+            device=self.device,
+        )
+        initial_variances = None
+        if a.initial_variances:
+            initial_variances = read_initial_variances(a.initial_variances)
+        out = sreml.compute(
+            initial_h2s=a.initial_h2s,
+            initial_variances=initial_variances,
+            checkpoint_path=a.checkpoint,
+        )
+        with timers.phase("WriteREML"):
+            write_reml_summary(a.out, sreml.model, out.result, use_ml=a.use_ml)
+            with result_open(a.out + ".correlations") as fh:
+                fh.write("NAME VALUE SE\n")
+                for row in out.correlations:
+                    fh.write(f"{row.name} {row.value:.8g} {row.std_error:.8g}\n")
+        self.log.message(f"multi-trait REML results stored at [ {a.out}.reml ]")
+        return out
+
     # ------------------------------------------------------------- GWAS ---
     def make_gwas(self):
         """--gwas (gwas.cpp:126-312): OLS without a GRM, mixed model with."""
         a = self.args
         if a.bfile_grm_list or a.bgen_grm_list:
             return self._gwas_genotype_grm_list()
-        if a.groups or a.group_all:
-            raise _not_ported("grouped GWAS (--groups / --group-all)", "item 6")
         with timers.phase("LoadGenotypes"):
             data = self.load_genotype()
         pheno = self.load_phenotypes()[0]
@@ -659,8 +759,13 @@ class Analysis:
         y = np.array([pm[k] for k in common])
         x = covar.filter_individuals(common).matrix
 
+        covariance = None
         if kern is not None:
-            lam, u, (vg, ve) = self._gwas_covariance([kern] + extras, common, pheno, covar)
+            covariance = self._gwas_covariance([kern] + extras, common, pheno, covar)
+        if a.groups or a.group_all:
+            return self._grouped_gwas(data, y, x, stats, covariance)
+        if covariance is not None:
+            lam, u, (vg, ve) = covariance
             if a.gwas_use_null_variances:
                 # EMMAX fast path: V^-1 straight from the eigenbasis, in
                 # float64 on the device; the GLS runs at the bulk dtype
@@ -765,6 +870,119 @@ class Analysis:
             (a.bfile, a.bgen, a.grm, a.bfile_grm_list, a.bgen_grm_list, a.out) = saved
         return outs
 
+    def _grouped_gwas(self, data, y, x, stats, covariance=None):
+        """Grouped GWAS (computeGroupedGWAS, gwas.cpp:314-478): joint
+        per-group fits — OLS with the F-test GROUPPV, or, with a GRM, ML
+        refits under the mixed-model covariance with the chi2-LRT GROUPPV
+        (gwas.cpp:787-914 + 940-957) — plus optional per-individual group
+        effects.  The raw dosages go to the device once."""
+        a = self.args
+        grouping = by_group_file(data, a.groups) if a.groups else by_all(data)
+        with timers.phase("LoadGenotypes"):
+            rows = CenteredRows.from_data(data, self.device)
+        with timers.phase("GWAS"):
+            results, effects = grouped_gwas(
+                rows, data.snp_names, grouping, y, x,
+                significance_threshold=a.significance_threshold,
+                correlation_threshold=a.snp_corr_threshold,
+                compute_effects=a.group_effects,
+                covariance=covariance,
+            )
+            # correlated-SNP removal (getLessSignificantCorrelatedSNPs per
+            # group, gwas.cpp:391 + storeResults' intersection with the
+            # significant set, gwas.cpp:1137-1152)
+            flagged = flag_correlated_in_groups(
+                rows, data.snp_names, results, a.snp_corr_threshold
+            )
+        del rows
+        name_to_i = {s.name: i for i, s in enumerate(data.snps)}
+        c = x.shape[1]
+        significant_set: set = set()
+        with timers.phase("WriteGWAS"):
+            with result_open(a.out + ".multi.gwas.snps") as fh:
+                fh.write("GROUP SNP ALLELE MEAN STDEV BETA NBETA SE PV GROUPPV"
+                         + (" GROUPVAR\n" if a.group_var else "\n"))
+                for group, res in results.items():
+                    for j, nm in enumerate(res.snp_names):
+                        i = name_to_i[nm]
+                        line = (
+                            f"{group} {nm} {data.snps[i].allele2} {stats.mean[i]:.3g} "
+                            f"{stats.std[i]:.3g} {res.beta[c + j]:.8g} "
+                            f"{res.beta[c + j] / stats.std[i]:.5g} "
+                            f"{res.se[c + j]:.8g} {res.p[c + j]:.6g} "
+                            f"{res.f_p_value:.6g}"
+                        )
+                        if a.group_var:
+                            line += f" {res.group_variance:.6g}"
+                        fh.write(line + "\n")
+                        if res.p[c + j] < a.significance_threshold:
+                            significant_set.add(nm)
+            if effects is not None:
+                effects.save(a.out + ".effects")
+            correlated_significant = sorted(flagged & significant_set)
+            if correlated_significant:
+                self.log.message(f"{len(correlated_significant)} correlated SNPs removed.")
+                with result_open(a.out + ".gwas.correlatedSNPs") as fh:
+                    for nm in correlated_significant:
+                        fh.write(nm + "\n")
+            unfitted = [(g, s) for g, r in results.items() for s in r.dropped_snps]
+            if unfitted:
+                with result_open(a.out + ".multi.gwas.unfitted") as fh:
+                    for g, s in unfitted:
+                        fh.write(f"{g} {s}\n")
+        self.log.message(
+            f"grouped GWAS stored at [ {a.out}.multi.gwas.snps ] ({len(results)} groups)"
+        )
+        return results
+
+    def make_recursive_gwas(self):
+        """--rgwas (gwas.cpp:239-284): grouped fits of consecutive SNPs,
+        keep the significant, regroup, until the set stops changing; under
+        the mixed-model covariance when a GRM is given (computeGLM
+        dispatch, gwas.cpp:690-700)."""
+        a = self.args
+        with timers.phase("LoadGenotypes"):
+            data = self.load_genotype()
+        pheno = self.load_phenotypes()[0]
+        covar = self.load_covariate(pheno.keys)
+        kern = None
+        if a.grm:
+            with timers.phase("LoadGRM"):
+                kern = self.load_grm(allow_compute=False)
+            common = intersection_keeping_order(
+                kern.individual_keys, pheno.keys, covar.keys, data.individual_keys
+            )
+        else:
+            common = intersection_keeping_order(data.individual_keys, pheno.keys, covar.keys)
+        with timers.phase("LoadGenotypes"):
+            data = data.filter(keep_individuals=common)
+            rows = CenteredRows.from_data(data, self.device)
+        pm = pheno.as_dict()
+        y = np.array([pm[k] for k in common])
+        x = covar.filter_individuals(common).matrix
+        covariance = None
+        if kern is not None:
+            covariance = self._gwas_covariance([kern], common, pheno, covar)
+        with timers.phase("GWAS"):
+            significant, results = recursive_gwas(
+                rows, data.snp_names, y, x,
+                group_size=a.rgwas_group_size,
+                significance_threshold=a.significance_threshold,
+                max_iterations=a.rgwas_maxit,
+                iteration_thresholds=a.rgwas_thresholds,
+                max_fit_ratio=a.rgwas_ratio,
+                covariance=covariance,
+            )
+        with timers.phase("WriteGWAS"):
+            with result_open(a.out + ".rgwas") as fh:
+                fh.write("SNP\n")
+                for s in significant:
+                    fh.write(s + "\n")
+        self.log.message(
+            f"recursive GWAS stored at [ {a.out}.rgwas ] ({len(significant)} significant SNPs)"
+        )
+        return significant
+
     def _write_gwas(self, res, data: Union[PlinkData, BgenData], covar, common, row_var=None):
         """Write .gwas.snps / .gwas.mean / .gwas.discrete /
         .gwas.quantitative (storeResults, gwas.cpp:1036-1154).
@@ -855,12 +1073,12 @@ class Analysis:
             "filterMatrix": self.make_filter_matrix,
             "addGRMs": self.make_add_grms,
             "REML": self.make_reml,
+            "PCA": self.make_pca,
+            "bivarREML": self.make_multi_reml,
+            "multiREML": self.make_multi_reml,
+            "recursiveGWAS": self.make_recursive_gwas,
         }
         not_ported = {
-            "PCA": "item 3",
-            "bivarREML": "item 5",
-            "multiREML": "item 5",
-            "recursiveGWAS": "item 6",
             "multiplePhenotypeResiduals": "item 7",
             "multiplePhenotypeGWAS": "item 7",
             "iGWAS": "item 7",

@@ -133,14 +133,16 @@ def covariance_model_from_state(
     elements: Sequence,
     group_magnitudes: Optional[Dict[str, float]] = None,
     device="cuda",
+    trait_sizes: Optional[Sequence[int]] = None,
 ) -> CovarianceModel:
     """The port's CovarianceModel from a JAX CovarianceModel's state: its
     matrices by name (numpy arrays, moved to `device` as float64), its
     Variance records and its Element records (any objects with those
-    attribute names; enums are matched by member name), and its group
-    magnitudes.  Both engines then evaluate the same V(theta).  Every
-    trait block must hold all n individuals (uniform trait sizes)."""
-    model = CovarianceModel(n, n_traits, diagonal)
+    attribute names; enums are matched by member name), its group
+    magnitudes, and its per-trait sizes (`trait_sizes`, None for n
+    individuals in every trait block).  Both engines then evaluate the
+    same V(theta)."""
+    model = CovarianceModel(n, n_traits, diagonal, trait_sizes=trait_sizes)
     model.group_magnitudes = dict(group_magnitudes or {})
     names = [v.name for v in variances]
     for v in variances:

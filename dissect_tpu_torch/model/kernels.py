@@ -226,8 +226,12 @@ class Kernel:
         sign = -1.0 if subtract else 1.0
         raw = self.matrix * self.counts + sign * other.matrix * other.counts
         counts = self.counts + sign * other.counts
+        # the set is built once; the JAX package rebuilds it for every SNP
+        # of self (dissect_tpu/model/kernels.py:254), which is quadratic
+        # in the SNP count
+        removed = set(other.snp_names)
         snps = (
-            [s for s in self.snp_names if s not in set(other.snp_names)]
+            [s for s in self.snp_names if s not in removed]
             if subtract
             else self.snp_names + other.snp_names
         )

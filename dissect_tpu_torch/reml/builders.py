@@ -6,14 +6,12 @@ the multi-trait kernel/variance/element construction
 naming: kernels are "K_1".."K_k" (or their given names), the
 environmental identity is "E".
 
-Port of dissect_tpu/reml/builders.py:35-245.  The asymmetric builder for
-per-trait individual sets (build_variance_model_asymmetric) comes with
-multi-trait REML (ROADMAP.md, queue 1 item 5).
+Port of dissect_tpu/reml/builders.py.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -255,4 +253,159 @@ def build_variance_model(
                 model.append_variance_to_element(
                     e.name, f"Var(E_p{l + 1})", VarianceTransform.SQRT
                 )
+    return model
+
+
+def build_variance_model_asymmetric(
+    kernel_blocks: "Dict[str, Dict[Tuple[int, int], torch.Tensor]]",
+    phenotype_variances: Sequence[float],
+    heritabilities: Sequence[float],
+    trait_sizes: Sequence[int],
+    env_cross_blocks: "Dict[Tuple[int, int], torch.Tensor]",
+    weights: Optional[Sequence[float]] = None,
+    use_correlations: bool = False,
+) -> CovarianceModel:
+    """Multi-trait model with DIFFERING per-trait individual sets.
+
+    kernel_blocks: kernel name -> {(t, u): K[S_t, S_u]} for t <= u (the
+    asymmetric kernel blocks of reml.cpp:812-877).  env_cross_blocks:
+    {(t, u): indicator matrix of shared individuals} — the environmental
+    covariance exists only where individuals overlap
+    (computeEnvironmentalCovariances, reml.cpp:790-810); pairs with no
+    overlap are omitted.  Variance naming matches build_variance_model.
+    The blocks may be tensors on a device; the environmental identities
+    are made on the first kernel block's device, in float64.
+    """
+    n_traits = len(trait_sizes)
+    names = list(kernel_blocks)
+    k = len(names)
+    if weights is None:
+        weights = [1.0 / k] * k
+    model = CovarianceModel(trait_sizes[0], n_traits, diagonal=False, trait_sizes=trait_sizes)
+    first = next(iter(kernel_blocks[names[0]].values()))
+    device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+
+    for kname, blocks in kernel_blocks.items():
+        for (t, u), mat in blocks.items():
+            model.insert_matrix(f"{kname}__{t}_{u}", mat)
+    for t in range(n_traits):
+        model.insert_matrix(
+            f"E__{t}_{t}", torch.eye(trait_sizes[t], dtype=torch.float64, device=device)
+        )
+    for (t, u), mat in env_cross_blocks.items():
+        model.insert_matrix(f"E__{t}_{u}", mat)
+
+    for j in range(n_traits):
+        model.insert_variance_group(f"Phenotype_{j + 1}", phenotype_variances[j])
+        for l in range(j + 1, n_traits):
+            model.insert_variance_group(
+                f"Phenotype_{j + 1}_{l + 1}",
+                0.5 * np.sqrt(phenotype_variances[j] * phenotype_variances[l]),
+            )
+
+    for i, kname in enumerate(names):
+        for j in range(n_traits):
+            model.insert_variance(
+                f"Var({kname}_p{j + 1})",
+                f"Phenotype_{j + 1}",
+                ParameterType.VARIANCE,
+                EffectType.GENETIC,
+                phenotype_variances[j] * heritabilities[j] * weights[i],
+            )
+        for j in range(n_traits):
+            for l in range(j + 1, n_traits):
+                if (j, l) not in kernel_blocks[kname]:
+                    continue
+                deps = [f"Var({kname}_p{j + 1})", f"Var({kname}_p{l + 1})"]
+                if not use_correlations:
+                    init = 0.5 * np.sqrt(
+                        phenotype_variances[j] * heritabilities[j] * weights[i]
+                        * phenotype_variances[l] * heritabilities[l] * weights[i]
+                    )
+                    model.insert_variance(
+                        f"Covar({kname}_p{j + 1}-{l + 1})",
+                        f"Phenotype_{j + 1}_{l + 1}",
+                        ParameterType.COVARIANCE,
+                        EffectType.GENETIC,
+                        init,
+                        deps,
+                    )
+                else:
+                    model.insert_variance(
+                        f"Cor({kname}_p{j + 1}-{l + 1})",
+                        f"Phenotype_{j + 1}_{l + 1}",
+                        ParameterType.CORRELATION,
+                        EffectType.GENETIC,
+                        0.5,
+                    )
+    for j in range(n_traits):
+        model.insert_variance(
+            f"Var(E_p{j + 1})",
+            f"Phenotype_{j + 1}",
+            ParameterType.VARIANCE,
+            EffectType.ENVIRONMENT,
+            phenotype_variances[j] * (1.0 - heritabilities[j]),
+        )
+    for j in range(n_traits):
+        for l in range(j + 1, n_traits):
+            if (j, l) not in env_cross_blocks:
+                continue
+            deps = [f"Var(E_p{j + 1})", f"Var(E_p{l + 1})"]
+            if not use_correlations:
+                init = 0.5 * np.sqrt(
+                    phenotype_variances[j] * (1.0 - heritabilities[j])
+                    * phenotype_variances[l] * (1.0 - heritabilities[l])
+                )
+                model.insert_variance(
+                    f"Covar(E_p{j + 1}-{l + 1})",
+                    f"Phenotype_{j + 1}_{l + 1}",
+                    ParameterType.COVARIANCE,
+                    EffectType.ENVIRONMENT,
+                    init,
+                    deps,
+                )
+            else:
+                model.insert_variance(
+                    f"Cor(E_p{j + 1}-{l + 1})",
+                    f"Phenotype_{j + 1}_{l + 1}",
+                    ParameterType.CORRELATION,
+                    EffectType.ENVIRONMENT,
+                    0.5,
+                )
+
+    def cross_variances(e_name, prefix, j, l):
+        """The cross element's covariance, or its correlation times the
+        square roots of both traits' variances."""
+        if not use_correlations:
+            model.append_variance_to_element(
+                e_name, f"Covar({prefix}_p{j + 1}-{l + 1})", VarianceTransform.NOCHANGE
+            )
+            return
+        model.append_variance_to_element(
+            e_name, f"Cor({prefix}_p{j + 1}-{l + 1})", VarianceTransform.NOCHANGE
+        )
+        model.append_variance_to_element(e_name, f"Var({prefix}_p{j + 1})", VarianceTransform.SQRT)
+        model.append_variance_to_element(e_name, f"Var({prefix}_p{l + 1})", VarianceTransform.SQRT)
+
+    for i, kname in enumerate(names):
+        for j in range(n_traits):
+            e = model.insert_element(kname, f"{kname}_{j + 1}", f"{kname}__{j}_{j}", (j, j))
+            model.append_variance_to_element(
+                e.name, f"Var({kname}_p{j + 1})", VarianceTransform.NOCHANGE
+            )
+            for l in range(j + 1, n_traits):
+                if (j, l) not in kernel_blocks[kname]:
+                    continue
+                e = model.insert_element(
+                    kname, f"{kname}_{j + 1}_{l + 1}", f"{kname}__{j}_{l}", (j, l)
+                )
+                cross_variances(e.name, kname, j, l)
+    for j in range(n_traits):
+        e = model.insert_element("E", f"E_{j + 1}", f"E__{j}_{j}", (j, j))
+        model.append_variance_to_element(e.name, f"Var(E_p{j + 1})", VarianceTransform.NOCHANGE)
+        for l in range(j + 1, n_traits):
+            if (j, l) not in env_cross_blocks:
+                continue
+            e = model.insert_element("E", f"E_{j + 1}_{l + 1}", f"E__{j}_{l}", (j, l))
+            cross_variances(e.name, "E", j, l)
     return model

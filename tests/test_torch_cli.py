@@ -115,10 +115,12 @@ def test_options_parse_like_jax(argv):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--reml", "--groups", str(GOLDEN / "groups.txt")] + BASE, "item 6"),
-    (["--pca", "--grm", "g"], "item 3"),
-    (["--bivar-reml", "--grm", "g"], "item 5"),
-    (["--gwas", "--groups", "grp"] + BASE, "item 6"),
+    (["--mpgwas"] + BASE, "item 7"),
+    (["--igwas", "--bfile", str(GOLDEN / "cohort"), "--igwas-qcovar",
+      str(GOLDEN / "testcovar.txt")], "item 7"),
+    (["--simulate", "--bfile", str(GOLDEN / "cohort"), "--effect-sizes",
+      str(GOLDEN / "causal.txt")], "item 8"),
+    (["--glmm", "--grm", "g"] + BASE, "item 8"),
     (["--mpresiduals"] + BASE, "item 7"),
 ])
 def test_unported_analyses_name_their_roadmap_item(tmp_path, monkeypatch, argv, item):

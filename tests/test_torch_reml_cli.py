@@ -133,7 +133,21 @@ def test_cli_matches_jax(cohort, tmp_path, cpu, case):
 
 
 def test_regional_reml_names_its_roadmap_item(cohort, tmp_path, cpu):
+    """Regional `--reml --region-size`, which named its ROADMAP.md item
+    until queue 1 item 6 ported it, now runs and writes what the JAX CLI
+    writes: 100 kb regions, one per chromosome, the two with 10 SNPs."""
     tmp, bfile = cohort
-    with pytest.raises(NotImplementedError, match="item 6"):
-        main(["--reml", "--bfile", bfile, "--pheno", str(tmp / "pheno.txt"),
-              "--region-size", "100", "--out", str(tmp_path / "x")])
+    argv = ["--reml", "--bfile", bfile, "--pheno", str(tmp / "pheno.txt"),
+            "--region-size", "100", "--min-snps-region", "10", "--mesh", "none"]
+    outs = {}
+    for side, run in (("jax", jax_main), ("torch", main)):
+        (tmp_path / side).mkdir()
+        try:
+            run(argv + ["--out", str(tmp_path / side / "r")])
+        finally:
+            set_mesh_context(None)
+        outs[side] = sorted(p.name for p in (tmp_path / side).iterdir() if p.suffix != ".log")
+    assert outs["torch"] == outs["jax"] == ["r.lrt", "r.regional"]
+    assert len((tmp_path / "torch" / "r.regional").read_text().splitlines()) == 3
+    for name in outs["jax"]:
+        _diff_files(tmp_path / "torch" / name, tmp_path / "jax" / name, rtol=RTOL)

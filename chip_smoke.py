@@ -14,8 +14,9 @@ Phases, each of which stops the script on failure:
                and int8 tensor-core operations each at its pipe's rate);
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
                and BGEN input, dense `--reml --blue --snp-blup`, `--pca`,
-               `--bivar-reml`, regional `--reml` and grouped `--gwas`, on the
-               card, against the stored golden files;
+               `--bivar-reml`, regional `--reml`, grouped `--gwas`,
+               `--mpresiduals`/`--mpgwas`, `--igwas`, `--simulate` and
+               `--predict`, on the card, against the stored golden files;
   4. main      the PLINK path: a synthetic PLINK cohort at the size users run
                (10,000 individuals x 50,000 SNPs, 1% missing, 2 quantitative
                covariates, a phenotype with h2 = 0.5 from 500 causal SNPs),
@@ -46,9 +47,27 @@ Phases, each of which stops the script on failure:
                causal SNPs: its Regional-GRM LRT p < 1e-10, the others' > 1e-6;
   5f. grouped  `--gwas --groups` on 5-SNP groups, OLS and under `--grm`, causal
                groups enriched among the smallest GROUPPVs, and `--rgwas` on
-               100-SNP groups, its SNPs enriched for causal ones.  Every step of
-               5c-5f runs through main() with the launch counters zeroed just
-               before and read just after;
+               100-SNP groups, its SNPs enriched for causal ones;
+  5g. mp       `--mpresiduals` on four phenotype columns (h2 0.5, 0.3, 0.1, 0;
+               K1 builds the GRM in line), the first column's residuals against
+               s2_E V^-1 (y - X b) recomputed in float64, then `--mpgwas`: causal
+               SNPs enriched for the h2 0.5 column, lambda_GC near 1 for the h2 0
+               column;
+  5h. igwas    `--igwas --grm` with the PLINK path's GRM: the per-SNP ML refits
+               with the SNP as the outcome, their moments through K3 (q = 3,
+               K = 15), under 1% unfitted, and on a 2,048-SNP subset the K3 route
+               against the plain float64 route;
+  5i. glmm     `--glmm` on a case/control coding of the trait (K1 builds the
+               GRM in line), then the same argv on a 2,000 x 5,000 fileset cut
+               from the cohort on the card and on the CPU, equal at rtol 1e-6,
+               and a 60-individual chain whose proposals are accepted now and
+               then, card against CPU;
+  5j. simulate `--simulate` from the 500 causal SNPs, then `--predict` with the
+               simulated effects (host numpy in both packages): the genetic
+               share near --simu-h2 and the predictions equal to the simulated
+               genetic values less the effects of the observed genotypes.
+               Every step of 5c-5j runs through main() with the launch counters
+               zeroed just before and read just after;
   6. bgen      the BGEN path: a synthetic imputed cohort of the same size in
                UK Biobank's format (BGEN layout 2, 8-bit, zlib), dosages blurred
                off the hard calls, 1% missing, the same covariate and phenotype
@@ -89,6 +108,10 @@ N_MISSING_TRAIT2 = 1_000  # the bivariate phase's second trait misses these
 N_PCS = 20
 GROUP_SNPS = 5       # the grouped GWAS phase: groups of consecutive SNPs
 REGION_SNPS = 2_000  # the regional phase: four groups of this many SNPs
+MP_H2 = (0.5, 0.3, 0.1, 0.0)  # the mp phase's phenotype columns (the first is the trait)
+PREVALENCE = 0.3     # the glmm phase's case share, cut from the trait's liability
+IGWAS_SUBSET = 2_048  # SNPs of the igwas phase's K3-vs-float64 comparison
+GLMM_SMALL = (2_000, 5_000)  # individuals x SNPs of the glmm card-vs-CPU fileset
 GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's and K2's row count on the main paths
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
@@ -129,6 +152,18 @@ NULL_VS_DENSE_RTOL = 1e-4
 # SNP BLUPs against their float64 recomputation from the fitted
 # variances: the same float64 sums in another order.
 SNP_BLUP_RTOL = 1e-6
+# --mpresiduals' residuals against s2_E P y recomputed in float64 from the
+# diagonal null fit: two float64 REML fits stopped at relative variance
+# changes of 1e-5 (as NULL_VS_DENSE_RTOL), relative to the largest residual.
+MP_RESIDUAL_RTOL = 1e-4
+# The golden multi-phenotype and inverse GWAS on the card run their products
+# in float32 against float64 golden files: each number within 1e-3 relative
+# plus 1e-3 of its column's largest magnitude (an effect near 0 against its
+# column's spread), the float32 rule of the golden GWAS.
+GOLDEN_F32_RTOL = 1e-3
+# The card's .glmm against the CPU run of the same argv: float64 on both
+# sides, the GRM K1's (float32 sums in another order than the plain version).
+GLMM_CARD_VS_CPU_RTOL = 1e-6
 
 
 class SmokeFailure(RuntimeError):
@@ -445,6 +480,12 @@ def phase_kernels(device):
     compare_k3(gen, 777, 1000, 9, device, timed=False)
     compare_k3(gen, 300, 1000, 9, device, timed=False)
     k3 = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 4, device, timed=True)
+    # the igwas refit's layout: s = the 3 rotated covariates, K = 15
+    compare_k3(gen, 777, 1000, 3, device, timed=False)
+    k3_igwas = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 3, device, timed=True)
+    k3["igwas_shape"] = {key: k3_igwas[key] for key in (
+        "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+        "trace_rel_err", "shape")}
     return [k1, k2, k3]
 
 
@@ -517,9 +558,30 @@ def phase_golden(workdir):
     for name in ("golden.bi.reml", "golden.bi.correlations", "golden.reg.regional",
                  "golden.reg.lrt", "golden.grp.multi.gwas.snps"):
         diff_text_files(workdir / name, golden / name, GOLDEN_REML_RTOL)
+    # multi-phenotype and inverse GWAS (their products in float32 on the
+    # card), simulation and prediction (host numpy in both packages)
+    main(["--mpresiduals"] + base + ["--out", f"{out}.mp"])
+    main(["--mpgwas"] + base + ["--out", f"{out}.mp"])
+    main(["--igwas", "--bfile", str(golden / "cohort"), "--igwas-qcovar",
+          str(golden / "testcovar.txt"), "--out", f"{out}.ig"])
+    main(["--simulate", "--bfile", str(golden / "cohort"), "--effect-sizes",
+          str(golden / "causal.txt"), "--simu-h2", "0.6", "--random-seed", "7",
+          "--out", f"{out}.sim"])
+    main(["--predict", "--bfile", str(golden / "cohort"), "--snp-effects",
+          str(golden / "eff.txt"), "--out", f"{out}.pred"])
+    worst = {}
+    for name in ("golden.mp.mpgwas", "golden.mp.multipheno.gwas.snps", "golden.ig.gwas.snps",
+                 "golden.ig.gwas.mean", "golden.ig.igwas"):
+        worst[name] = diff_text_files(workdir / name, golden / name, GOLDEN_F32_RTOL,
+                                      col_atol=GOLDEN_F32_RTOL)
+    for name in ("golden.sim.simulated.phenos", "golden.sim.simulated.effects",
+                 "golden.pred.predicted.phenos"):
+        worst[name] = diff_text_files(workdir / name, golden / name, GOLDEN_REML_RTOL)
+    log("golden files, worst relative difference: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
     log("golden cohort on the card: GRM, OLS and mixed-model GWAS, the BGEN GRM, dense "
-        "REML with BLUE and SNP BLUPs, PCA, bivariate and regional REML, and grouped GWAS "
-        "agree with tests/golden")
+        "REML with BLUE and SNP BLUPs, PCA, bivariate and regional REML, grouped, "
+        "multi-phenotype and inverse GWAS, simulation and prediction agree with tests/golden")
 
 
 def golden_pca(workdir, golden, base):
@@ -550,22 +612,40 @@ def golden_pca(workdir, golden, base):
     np.testing.assert_allclose(new_v * signs, v[:, ::-1][:, :5], rtol=0, atol=1e-7)
 
 
-def diff_text_files(ours, ref, rtol):
+def diff_text_files(ours, ref, rtol, col_atol=0.0):
     """Line by line, field by field: words equal, numbers at rtol (the
-    rule of tests/test_golden.py's _diff_files)."""
+    rule of tests/test_golden.py's _diff_files), plus `col_atol` times
+    the largest finite magnitude of the number's column in `ref`.
+    Returns the worst |ours - ref| / |ref| over the numbers."""
     a, b = Path(ours).read_text().split("\n"), Path(ref).read_text().split("\n")
     check(len(a) == len(b), f"{Path(ref).name}: {len(a)} lines, expected {len(b)}")
+    col_max = {}
+    for lb in b:
+        for j, fb in enumerate(lb.split()):
+            try:
+                vb = abs(float(fb))
+            except ValueError:
+                continue
+            if math.isfinite(vb):
+                col_max[j] = max(col_max.get(j, 0.0), vb)
+    worst = 0.0
     for ln, (la, lb) in enumerate(zip(a, b), start=1):
         pa, pb = la.split(), lb.split()
         check(len(pa) == len(pb), f"{Path(ref).name}:{ln}: field count")
-        for fa, fb in zip(pa, pb):
+        for j, (fa, fb) in enumerate(zip(pa, pb)):
             try:
                 va, vb = float(fa), float(fb)
             except ValueError:
                 check(fa == fb, f"{Path(ref).name}:{ln}: {fa!r} != {fb!r}")
                 continue
-            check(abs(va - vb) <= rtol * abs(vb) + 1e-12,
-                  f"{Path(ref).name}:{ln}: {va!r} != {vb!r} at rtol {rtol:g}")
+            if math.isnan(vb):
+                check(math.isnan(va), f"{Path(ref).name}:{ln}: {va!r} != nan")
+                continue
+            tol = rtol * abs(vb) + col_atol * col_max.get(j, 0.0) + 1e-12
+            check(abs(va - vb) <= tol, f"{Path(ref).name}:{ln}: {va!r} != {vb!r} at rtol {rtol:g}")
+            if vb != 0.0:
+                worst = max(worst, abs(va - vb) / abs(vb))
+    return worst
 
 
 def _read_gwas(path):
@@ -628,6 +708,31 @@ def _write_second_trait(workdir, gen, zc, genetic, qcov, y1, ids, device):
             fh.write(f"{fid} {iid} {y1[i]:.10f} {second}\n")
 
 
+def _write_mp_traits(workdir, gen, zc, qcov, y1, ids, device):
+    """pheno4.txt: trait 1 as written (h2 0.5), then one trait for each
+    further h2 of MP_H2 on the same causal rows with their own effects
+    (covariate effects 0.3 and -0.2), all drawn after every earlier draw
+    of `gen`.  cc.txt: trait 1 as a liability cut at PREVALENCE into
+    case (2) and control (1) codes."""
+    n = zc.shape[1]
+    columns = [np.asarray(y1)]
+    for h2 in MP_H2[1:]:
+        beta = torch.randn((zc.shape[0],), generator=gen, device=device, dtype=torch.float64)
+        noise = torch.randn((n,), generator=gen, device=device, dtype=torch.float64)
+        genetic = beta @ zc
+        genetic = genetic / genetic.std() * math.sqrt(h2)
+        y = 1.0 + qcov @ torch.tensor([0.3, -0.2], device=device, dtype=torch.float64) \
+            + genetic + noise * math.sqrt(1.0 - h2)
+        columns.append(y.cpu().numpy())
+    with open(workdir / "pheno4.txt", "w") as fh:
+        for i, (fid, iid) in enumerate(ids):
+            fh.write(f"{fid} {iid} " + " ".join(f"{c[i]:.10f}" for c in columns) + "\n")
+    cut = np.quantile(columns[0], 1.0 - PREVALENCE)
+    with open(workdir / "cc.txt", "w") as fh:
+        for i, (fid, iid) in enumerate(ids):
+            fh.write(f"{fid} {iid} {2 if columns[0][i] > cut else 1}\n")
+
+
 def _snp_infos(m):
     from dissect_tpu_torch.io.bed import SnpInfo
 
@@ -637,8 +742,9 @@ def _snp_infos(m):
 
 def write_cohort(workdir, device):
     """The synthetic PLINK cohort, made on the card from SEED: PLINK files,
-    a 2-column quantitative covariate file, the phenotype, and the two
-    traits of the bivariate phase (pheno2.txt)."""
+    a 2-column quantitative covariate file, the phenotype, the two traits
+    of the bivariate phase (pheno2.txt), the four of the mp phase
+    (pheno4.txt) and the glmm phase's case/control coding (cc.txt)."""
     from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, write_plink
 
     gen = torch.Generator(device=device)
@@ -653,6 +759,7 @@ def write_cohort(workdir, device):
     ids = [(f"F{i}", f"I{i}") for i in range(n)]
     zc, genetic, qcov, y1 = _write_traits(workdir, gen, d, ids, device)
     _write_second_trait(workdir, gen, zc, genetic, qcov, y1, ids, device)
+    _write_mp_traits(workdir, gen, zc, qcov, y1, ids, device)
     data = PlinkData(
         snps=_snp_infos(m),
         individuals=[IndividualInfo(fid, iid) for fid, iid in ids],
@@ -743,7 +850,8 @@ def science_checks(workdir, causal, n_snps):
 
 def phase_checks(workdir, causal, device):
     """The PLINK path's science checks, and on a 512-SNP subset the refit
-    through K3 against the refit through its plain version."""
+    through K3 against the refit through its plain version.  Returns the
+    summary and the written GRM, diagonalized on the card."""
     from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
     from dissect_tpu_torch.gwas.moments_kernels import plain_refit_moments
     from dissect_tpu_torch.io.bed import read_plink
@@ -784,7 +892,7 @@ def phase_checks(workdir, causal, device):
                                atol=REFIT_RTOL * float(plain.snp_se[both].min()))
     log(f"512-SNP subset: K3 vs plain refit agree at rtol {REFIT_RTOL:g} on {int(both.sum())} SNPs "
         f"(max beta diff {np.max(np.abs(fused.snp_beta[both] - plain.snp_beta[both])):.3e})")
-    return {**summary, "null_variances": list(theta)}
+    return {**summary, "null_variances": list(theta)}, kern
 
 
 def _traits(workdir, keys):
@@ -851,11 +959,7 @@ def phase_reml(workdir, counters, null_variances, device):
     k64 = torch.as_tensor(read_grm(str(workdir / "grm"))["kernel"], device=device).double()
     y, x = (torch.as_tensor(a, device=device) for a in (y_h, x_h))
     v = dense[0] * k64 + dense[1] * torch.eye(N_INDIVIDUALS, device=device, dtype=torch.float64)
-    chol = torch.linalg.cholesky(v)
-    vi_y, vi_x = torch.cholesky_solve(y[:, None], chol)[:, 0], torch.cholesky_solve(x, chol)
-    beta = torch.linalg.solve(x.T @ vi_x, vi_x.T @ y)
-    py = (vi_y - vi_x @ beta).cpu().numpy()
-    del chol, vi_x
+    py = _py_float64(v, y, x).cpu().numpy()
     idx = np.arange(0, N_SNPS, N_SNPS // 1000)[:1000]
     stats = data.stats()
     d = data.decode_chunk(0, N_SNPS)[idx].astype(np.float64)
@@ -891,6 +995,15 @@ def phase_reml(workdir, counters, null_variances, device):
     }
     log("reml path: " + json.dumps(summary))
     return launches, seconds, summary
+
+
+def _py_float64(v, y, x):
+    """P y = V^-1 (y - X b), b = (X'V^-1 X)^-1 X'V^-1 y, in float64 on V's
+    device by a Cholesky factor of V."""
+    chol = torch.linalg.cholesky(v)
+    vi_y, vi_x = torch.cholesky_solve(y[:, None], chol)[:, 0], torch.cholesky_solve(x, chol)
+    beta = torch.linalg.solve(x.T @ vi_x, vi_x.T @ y)
+    return vi_y - vi_x @ beta
 
 
 # ---------------------------------------------------------------- phase 5c --
@@ -1106,6 +1219,249 @@ def phase_grouped(workdir, causal, counters, device):
     return seconds, summary
 
 
+# ---------------------------------------------------------------- phase 5g --
+def phase_mp(workdir, causal, counters, null_variances, device):
+    """`--mpresiduals --bfile --pheno pheno4.txt --pheno-cols 1,2,3,4` (K1
+    builds the GRM in line, 25 launches; one diagonal float64 REML fit
+    per column), then `--mpgwas`.  Checks: the first column's residuals
+    equal s2_E P y recomputed here in float64 from the diagonal null fit
+    of phase 5 (the same model), within MP_RESIDUAL_RTOL of the largest
+    residual; every mpgwas number finite; causal SNPs at least 10x
+    enriched among the 500 smallest p-values of the h2 0.5 column;
+    lambda_GC of the h2 0 column within [0.9, 1.1]."""
+    from dissect_tpu_torch.io.grm_io import read_grm
+
+    args = ["--bfile", str(workdir / "cohort"), "--pheno", str(workdir / "pheno4.txt"),
+            "--qcovar", str(workdir / "qcovar.txt"), "--out", str(workdir / "mp")]
+    lm, launches, seconds, peak = _drive(
+        "mpresiduals", ["--mpresiduals", "--pheno-cols", "1,2,3,4"] + args, counters, device)
+    check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the mpresiduals path")
+    check(lm.values.shape == (N_INDIVIDUALS, len(MP_H2)) and np.isfinite(lm.values).all(),
+          f"residuals of shape {lm.values.shape}, not all finite")
+    y_h, x_h = _traits(workdir, lm.row_labels)
+    k64 = torch.as_tensor(read_grm(str(workdir / "grm"))["kernel"], device=device).double()
+    s2_g, s2_e = (float(v) for v in null_variances)
+    v = s2_g * k64 + s2_e * torch.eye(N_INDIVIDUALS, device=device, dtype=torch.float64)
+    del k64
+    y, x = (torch.as_tensor(a, device=device) for a in (y_h, x_h))
+    expect = s2_e * _py_float64(v, y, x).cpu().numpy()
+    del v
+    res_err = float(np.max(np.abs(lm.values[:, 0] - expect)) / np.max(np.abs(expect)))
+    log(f"mpresiduals: column 1 against s2_E P y in float64, worst error {res_err:.2e} of the "
+        f"largest residual (tol {MP_RESIDUAL_RTOL:g})")
+    check(res_err <= MP_RESIDUAL_RTOL, "mp residuals disagree with their float64 recomputation")
+
+    res, gwas_launches, gwas_seconds, gwas_peak = _drive(
+        "mpgwas", ["--mpgwas", "--bfile", str(workdir / "cohort"), "--out", str(workdir / "mp")],
+        counters, device)
+    seconds.update(gwas_seconds)
+    check(res.beta.shape == (N_SNPS, len(MP_H2)), f"mpgwas effects of shape {res.beta.shape}")
+    check(all(np.isfinite(getattr(res, f)).all() for f in ("beta", "se", "t", "p")),
+          "non-finite mpgwas output")
+    top = np.argsort(res.p[:, 0])[:N_CAUSAL]
+    hits = sum(1 for i in top if res.snp_names[i] in causal)
+    enrichment = hits / N_CAUSAL / (N_CAUSAL / N_SNPS)
+    lambda_gc = float(np.median(res.t[:, -1] ** 2) / 0.4549364231195724)  # chi2_1 median
+    log(f"mpgwas: {hits} causal SNPs among the {N_CAUSAL} smallest p-values of the h2 "
+        f"{MP_H2[0]} column ({enrichment:.1f}x); lambda_GC of the h2 {MP_H2[-1]} column "
+        f"{lambda_gc:.4f}")
+    check(enrichment >= 10.0, "causal SNPs not enriched in the mpgwas of the h2 0.5 column")
+    check(0.9 <= lambda_gc <= 1.1, f"lambda_GC {lambda_gc} of the null column")
+    summary = {"residual_rel_err": res_err, "causal_in_top": hits, "enrichment": enrichment,
+               "lambda_gc_null": lambda_gc, "peak_device_gb": max(peak, gwas_peak)}
+    log("mp path: " + json.dumps(summary))
+    return launches, seconds, summary
+
+
+# ---------------------------------------------------------------- phase 5h --
+def phase_igwas(workdir, counters, kern, device):
+    """`--igwas --bfile --grm <the PLINK path's GRM> --qcovar`: per-SNP ML
+    refits with the SNP as the outcome, whose moments K3 computes (s = the
+    3 rotated covariates): 16 launches at M = 50,000 (15 Fisher steps and
+    the final quantities; igwas has no retry).  Checks: finite output on
+    the fitted SNPs; on a 2,048-SNP subset the refit through K3 (float32)
+    against the plain float64 route: beta and SE at REFIT_RTOL on the SNPs
+    both fit, at most 1% of the subset fitted by float64 and not by K3, and
+    the whole run's unfitted share within 0.05 of the float64 subset's.
+    The share itself is the model's: each SNP is one of the M that built
+    the GRM, whose self term (n/M = 0.2 of its off-diagonal spread) makes
+    the SNP look fully heritable, so most fits stop with the residual
+    variance at its floor and a gradient the test rejects (JAX's igwas
+    alike).  `kern`: the GRM's eigenbasis."""
+    from dissect_tpu_torch.gwas.grouped import centered_genotypes
+    from dissect_tpu_torch.gwas.igwas import igwas
+    from dissect_tpu_torch.gwas.moments_kernels import plain_refit_moments
+    from dissect_tpu_torch.io.bed import read_plink
+
+    res, launches, seconds, peak = _drive(
+        "igwas", ["--igwas", "--bfile", str(workdir / "cohort"), "--grm", str(workdir / "grm"),
+                  "--qcovar", str(workdir / "qcovar.txt"), "--out", str(workdir / "igwas")],
+        counters, device)
+    k3_by_rows = dict(counters["fused_refit_moments"].launches_by_rows)
+    log(f"igwas path K3 launches by M: {json.dumps(k3_by_rows)}")
+    check(k3_by_rows == {N_SNPS: 16}, f"K3 launches by M on the igwas path: {k3_by_rows}")
+    unfitted = int((~res.converged).sum())
+    written = (workdir / "igwas.gwas.unfitted").read_text().split() if unfitted else []
+    check(len(written) == unfitted, "the .gwas.unfitted file does not list the unfitted SNPs")
+    log(f"igwas: {unfitted} of {N_SNPS} SNPs unfitted")
+    fitted = res.converged
+    check(all(np.isfinite(a[fitted]).all() for a in (res.beta, res.se, res.p, res.group_p)),
+          "non-finite igwas output on fitted SNPs")
+
+    data = read_plink(str(workdir / "cohort"))
+    _, x = _traits(workdir, data.individual_keys)
+    idx = np.arange(0, N_SNPS, N_SNPS // IGWAS_SUBSET)[:IGWAS_SUBSET]
+    dosage = torch.as_tensor(data.decode_chunk(0, N_SNPS)[idx], device=device)
+    z = centered_genotypes(dosage, torch.as_tensor(data.stats().mean[idx], device=device))
+    names = [data.snps[i].name for i in idx]
+    cov_names = ["mean", "quantitative_1", "quantitative_2"]
+    covariance = (kern.eigenvalues, kern.eigenvectors)
+    fused = igwas(z, names, x, cov_names, covariance=covariance, dtype=torch.float32)
+    plain = igwas(z, names, x, cov_names, covariance=covariance, dtype=torch.float64,
+                  moments=plain_refit_moments)
+    both = fused.converged & plain.converged
+    check(both.any(), "no SNP of the igwas subset was fitted by both routes")
+    lost = int((plain.converged & ~fused.converged).sum())
+    log(f"igwas {IGWAS_SUBSET}-SNP subset: fitted {int(fused.converged.sum())} through K3, "
+        f"{int(plain.converged.sum())} in float64; {lost} fitted in float64 only")
+    check(lost <= 0.01 * IGWAS_SUBSET, f"{lost} SNPs fitted in float64 but not through K3")
+    share, share64 = unfitted / N_SNPS, 1.0 - float(plain.converged.mean())
+    check(abs(share - share64) <= 0.05,
+          f"unfitted share {share:.4f} against {share64:.4f} of the float64 subset")
+    np.testing.assert_allclose(fused.se[both], plain.se[both], rtol=REFIT_RTOL)
+    np.testing.assert_allclose(fused.beta[both], plain.beta[both], rtol=REFIT_RTOL,
+                               atol=REFIT_RTOL * float(plain.se[both].min()))
+    summary = {"unfitted": unfitted, "unfitted_share": share,
+               "subset_unfitted_share_float64": share64,
+               "subset_fitted_k3": int(fused.converged.sum()),
+               "subset_fitted_float64": int(plain.converged.sum()), "subset_lost": lost,
+               "subset_max_beta_diff": float(np.max(np.abs(fused.beta[both] - plain.beta[both]))),
+               "launches_by_rows": k3_by_rows, "peak_device_gb": peak}
+    log("igwas path: " + json.dumps(summary))
+    return launches, seconds, summary
+
+
+# ---------------------------------------------------------------- phase 5i --
+def _glmm_chain_problem(seed, n=60):
+    """A 60-individual logistic mixed model, V = 0.2 K + 0.1 I, small enough
+    that the chain's joint proposals are accepted now and then."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(250, n))
+    k = z.T @ z / 250
+    u = np.linalg.cholesky(k + 1e-8 * np.eye(n)) @ rng.normal(size=n) * math.sqrt(0.2)
+    x = np.column_stack([np.ones(n), rng.normal(size=n)])
+    y = (rng.random(n) < 1 / (1 + np.exp(-(x @ [-0.2, 0.8] + u)))).astype(float)
+    return y, x, 0.2 * k + 0.1 * np.eye(n)
+
+
+def phase_glmm(workdir, counters, device):
+    """`--glmm --bfile --pheno cc.txt --qcovar`: K1 builds the GRM in line
+    (25 launches), V = s2_G K + s2_E I at the REML start values, its
+    float64 inverse and the Metropolis-Hastings chain on the card.
+    Checks: success, an acceptance rate in [0, 1).  Then the same argv on
+    a fileset of the first 2,000 individuals and 5,000 SNPs, on the card
+    and on the CPU: the .glmm files equal at GLMM_CARD_VS_CPU_RTOL.  Last,
+    a 60-individual chain whose proposals are accepted now and then, card
+    against CPU: the same acceptance rate, betas at the same tolerance."""
+    from dissect_tpu_torch.analysis.dispatcher import main
+    from dissect_tpu_torch.glm.glmm import GLMM
+    from dissect_tpu_torch.io.bed import PlinkData, read_plink, write_plink
+
+    argv = lambda cohort, out: ["--glmm", "--bfile", str(cohort), "--pheno",
+                                str(workdir / "cc.txt"), "--qcovar", str(workdir / "qcovar.txt"),
+                                "--out", str(out)]
+    result, launches, seconds, peak = _drive(
+        "glmm", argv(workdir / "cohort", workdir / "glmm"), counters, device)
+    check(launches["grm_fused_triangle_update"] == -(-N_SNPS // GRM_CHUNK),
+          f"K1 launched {launches['grm_fused_triangle_update']} times on the glmm path")
+    log(f"glmm: success {result.success}, acceptance rate {result.acceptance_rate}, "
+        f"betas {result.betas.tolist()} +- {result.betas_se.tolist()}")
+    check(result.success and np.isfinite(result.betas).all(), "GLMM did not succeed")
+    check(0.0 <= result.acceptance_rate < 1.0, f"acceptance rate {result.acceptance_rate}")
+
+    n_small, m_small = GLMM_SMALL
+    data = read_plink(str(workdir / "cohort"))
+    small = PlinkData(snps=data.snps[:m_small], individuals=data.individuals[:n_small],
+                      _dosage=np.ascontiguousarray(data.decode_chunk(0, m_small)[:, :n_small]))
+    write_plink(str(workdir / "small"), small)
+    t0 = time.monotonic()
+    main(argv(workdir / "small", workdir / "glmm_card"))
+    seconds["glmm_small_card"] = time.monotonic() - t0
+    os.environ["DISSECT_TPU_TORCH_DEVICE"] = "cpu"
+    try:
+        t0 = time.monotonic()
+        main(argv(workdir / "small", workdir / "glmm_cpu"))
+        seconds["glmm_small_cpu"] = time.monotonic() - t0
+    finally:
+        os.environ.pop("DISSECT_TPU_TORCH_DEVICE", None)
+    small_err = diff_text_files(workdir / "glmm_card.glmm", workdir / "glmm_cpu.glmm",
+                                GLMM_CARD_VS_CPU_RTOL)
+    log(f"glmm on {n_small} x {m_small}: card against CPU, worst relative difference "
+        f"{small_err:.2e} (tol {GLMM_CARD_VS_CPU_RTOL:g})")
+
+    y, x, v = _glmm_chain_problem(SEED)
+    fit = dict(n_outer=4, n_samples=30, burn_in=5)
+    card = GLMM(y, x, torch.as_tensor(v, device=device), seed=7).fit(**fit)
+    cpu = GLMM(y, x, torch.as_tensor(v), seed=7).fit(**fit)
+    log(f"glmm 60-individual chain: acceptance {card.acceptance_rate} on the card, "
+        f"{cpu.acceptance_rate} on the CPU")
+    check(0.0 < card.acceptance_rate < 1.0, "the small chain accepted no proposal")
+    check(card.acceptance_rate == cpu.acceptance_rate, "the chain decided otherwise on the card")
+    np.testing.assert_allclose(card.betas, cpu.betas, rtol=GLMM_CARD_VS_CPU_RTOL)
+    summary = {"success": result.success, "acceptance_rate": result.acceptance_rate,
+               "betas": result.betas.tolist(), "betas_se": result.betas_se.tolist(),
+               "small_card_vs_cpu_rel_err": small_err,
+               "chain_acceptance_rate": card.acceptance_rate, "peak_device_gb": peak}
+    log("glmm path: " + json.dumps(summary))
+    return launches, seconds, summary
+
+
+# ---------------------------------------------------------------- phase 5j --
+def phase_simulate_predict(workdir, causal, counters, device):
+    """`--simulate --effect-sizes` on the 500 causal SNPs (their effects
+    drawn N(0, 1) by the simulation) at --simu-h2 0.5, then `--predict`
+    with the simulated effects on allele 2.  Both are host numpy in both
+    packages.  Checks: the simulated genetic share var(g) / var(y) within
+    0.05 of 0.5; the predictions equal the simulated genetic values less
+    the summed effects of each individual's observed causal genotypes
+    (the simulation codes an observed dosage d as d + 1, the prediction
+    as d, and a missing one as 0 in both), to 1e-9 of their scale."""
+    from dissect_tpu_torch.io.bed import read_plink
+
+    (workdir / "causal.txt").write_text("".join(f"{nm}\n" for nm in sorted(causal)))
+    sim, _, seconds, _ = _drive(
+        "simulate", ["--simulate", "--bfile", str(workdir / "cohort"), "--effect-sizes",
+                     str(workdir / "causal.txt"), "--simu-h2", "0.5", "--random-seed", str(SEED),
+                     "--out", str(workdir / "sim")], counters, device)
+    share = float(np.var(sim.genetic_effects) / np.var(sim.phenotypes))
+    log(f"simulate: genetic share {share:.4f} at --simu-h2 0.5")
+    check(abs(share - 0.5) <= 0.05, f"simulated genetic share {share}")
+    (workdir / "effects.txt").write_text("SNP ALLELE EFFECT\n" + "".join(
+        f"{nm} G {eff!r}\n" for nm, eff in sim.causal_effects.items()))
+    pred, _, pred_seconds, _ = _drive(
+        "predict", ["--predict", "--bfile", str(workdir / "cohort"), "--snp-effects",
+                    str(workdir / "effects.txt"), "--out", str(workdir / "pred")],
+        counters, device)
+    seconds.update(pred_seconds)
+    check(pred.n_snps_used == N_CAUSAL and pred.n_flipped == 0,
+          f"predict used {pred.n_snps_used} SNPs, {pred.n_flipped} flipped")
+    data = read_plink(str(workdir / "cohort"))
+    index = {s.name: i for i, s in enumerate(data.snps)}
+    rows = [index[nm] for nm in sim.causal_effects]
+    observed = data.decode_chunk(0, N_SNPS)[rows] >= 0
+    effects = np.array(list(sim.causal_effects.values()))
+    expect = sim.genetic_effects - effects @ observed
+    err = float(np.max(np.abs(pred.scores - expect)) / np.max(np.abs(expect)))
+    r = float(np.corrcoef(pred.scores, sim.genetic_effects)[0, 1])
+    log(f"predict: scores against the simulated genetic values less the observed effects, "
+        f"worst error {err:.2e} of their scale; correlation with the genetic values {r:.6f}")
+    check(err <= 1e-9, "predictions disagree with the simulated genetic values")
+    summary = {"genetic_share": share, "prediction_rel_err": err, "correlation": r}
+    log("simulate/predict: " + json.dumps(summary))
+    return seconds, summary
+
+
 # ----------------------------------------------------------------- phase 6 --
 def write_bgen_cohort(workdir, device):
     """The synthetic imputed cohort, made on the card from SEED + 2, in UK
@@ -1208,7 +1564,8 @@ def main():
         seconds.update(path_seconds)
         peak_gb["plink"] = torch.cuda.max_memory_allocated(device) / 1e9
         t0 = time.monotonic()
-        summary = {"plink": phase_checks(plink_dir, causal, device)}
+        plink_summary, diag_kern = phase_checks(plink_dir, causal, device)
+        summary = {"plink": plink_summary}
         seconds["checks"] = time.monotonic() - t0
         reml_launches, reml_seconds, summary["reml"] = phase_reml(
             plink_dir, counters, summary["plink"]["null_variances"], device)
@@ -1225,7 +1582,19 @@ def main():
         seconds.update(path_seconds)
         path_seconds, summary["grouped"] = phase_grouped(plink_dir, causal, counters, device)
         seconds.update(path_seconds)
-        for tag in ("pca", "bivar", "regional"):
+        mp_launches, path_seconds, summary["mp"] = phase_mp(
+            plink_dir, causal, counters, summary["plink"]["null_variances"], device)
+        seconds.update(path_seconds)
+        igwas_launches, path_seconds, summary["igwas"] = phase_igwas(
+            plink_dir, counters, diag_kern, device)
+        seconds.update(path_seconds)
+        del diag_kern
+        glmm_launches, path_seconds, summary["glmm"] = phase_glmm(plink_dir, counters, device)
+        seconds.update(path_seconds)
+        path_seconds, summary["simulate_predict"] = phase_simulate_predict(
+            plink_dir, causal, counters, device)
+        seconds.update(path_seconds)
+        for tag in ("pca", "bivar", "regional", "mp", "igwas", "glmm"):
             peak_gb[tag] = summary[tag]["peak_device_gb"]
         shutil.rmtree(plink_dir, ignore_errors=True)
 
@@ -1256,13 +1625,18 @@ def main():
         by_path = {"plink": plink_launches[entry["name"]], "bgen": bgen_launches[entry["name"]],
                    "reml": reml_launches[entry["name"]], "pca": pca_launches[entry["name"]],
                    "bivar": bivar_launches[entry["name"]],
-                   "regional": regional_launches[entry["name"]]}
+                   "regional": regional_launches[entry["name"]],
+                   "mpresiduals": mp_launches[entry["name"]],
+                   "igwas": igwas_launches[entry["name"]],
+                   "glmm": glmm_launches[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "fused_refit_moments":
             entry["launches_by_shape"] = {
                 tag: {f"M={rows}": count for rows, count in by_rows.items()}
                 for tag, by_rows in k3_by_rows.items()}
+            entry["launches_by_shape"]["igwas"] = {
+                f"M={rows}": count for rows, count in summary["igwas"]["launches_by_rows"].items()}
             first = retry_timed.get("plink") or retry_timed.get("bgen")
             entry["retry_ms"] = first["ms"] if first else None
             entry["retry_shape"] = first["shape"] if first else None

@@ -123,9 +123,10 @@ def _ml_fit_diagonal(lam, y, xg, theta0, n_iterations):
     0.5*(y'P dV P y - tr(Vi dV)), F_kl = 0.5 tr(Vi dV_k Vi dV_l).
     Variances are clamped positive (constraint M1,
     covariancematrix.cpp:1183).  xg is (..., n, q) with any leading batch
-    axes (one design, or one per SNP); theta0 is (2,).  Returns
+    axes (one design, or one per SNP); theta0 is (2,), or (..., 2) with
+    a start (and so a floor) per batch entry.  Returns
     (b, diag((X'ViX)^-1), theta, logL, max|gradient|)."""
-    floor = 1e-6 * (theta0[0] + theta0[1])
+    floor = (1e-6 * (theta0[..., 0] + theta0[..., 1]))[..., None]
     batch = xg.shape[:-2]
     theta = theta0.expand(*batch, 2).clone()
 

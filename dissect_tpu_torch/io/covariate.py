@@ -75,6 +75,96 @@ class Covariate:
         )
 
 
+def load_effect_prediction(
+    discrete_path: Optional[str],
+    quantitative_path: Optional[str],
+    covar_effects_path: Optional[str],
+    qcovar_effects_path: Optional[str],
+    force_unestimated: bool = False,
+) -> Dict[str, float]:
+    """Per-individual covariate phenotype contribution from stored
+    effects (Covariate::loadEffectPrediction, covariate.cpp:624-713;
+    --cov-predict workflow analysis.cpp:436-456).
+
+    Effects files are 'NAME BETA STD' tables as written by our BLUE
+    writers (summary.write_blue): discrete names `discrete_<col>_<cat>`
+    (the first/base category of each column has effect 0),
+    quantitative names `quantitative_<col>`.  An individual whose
+    category has no stored effect errors unless `force_unestimated`
+    (--force-use-unestimated-values, covariate.cpp:673-678)."""
+
+    def read_effects(path):
+        table: Dict[str, float] = {}
+        if not path:
+            return table
+        with open(path) as fh:
+            for line_no, line in enumerate(fh):
+                parts = line.split()
+                if not parts or (line_no == 0 and parts[0].upper() == "NAME"):
+                    continue
+                table[parts[0]] = float(parts[1])
+        return table
+
+    disc_eff = read_effects(covar_effects_path)
+    # column -> {category: effect}
+    disc_by_col: Dict[int, Dict[str, float]] = {}
+    for name, beta in disc_eff.items():
+        if not name.startswith("discrete_"):
+            continue
+        _, col, cat = name.split("_", 2)
+        disc_by_col.setdefault(int(col), {})[cat] = beta
+    quant_eff = read_effects(qcovar_effects_path)
+    quant_by_col = {
+        int(name.split("_", 1)[1]): beta
+        for name, beta in quant_eff.items()
+        if name.startswith("quantitative_")
+    }
+
+    disc = _read_table(discrete_path) if discrete_path else {}
+    quant = _read_table(quantitative_path) if quantitative_path else {}
+    keys = list(disc) if disc else list(quant)
+
+    # base (first) categories per column carry effect 0, as in the BLUE
+    # design matrix where the first category is dropped
+    bases: Dict[int, str] = {}
+    if disc:
+        n_disc = len(next(iter(disc.values())))
+        for c in range(n_disc):
+            cats = sorted(
+                {disc[k][c] for k in disc if disc[k][c] not in MISSING_TOKENS}
+            )
+            if cats:
+                bases[c + 1] = cats[0]
+
+    result: Dict[str, float] = {}
+    for k in keys:
+        value = 0.0
+        ok = True
+        if disc:
+            for c, tok in enumerate(disc[k], start=1):
+                if tok in MISSING_TOKENS:
+                    ok = False
+                    break
+                table = disc_by_col.get(c, {})
+                if tok in table:
+                    value += table[tok]
+                elif tok != bases.get(c) and not force_unestimated:
+                    raise ValueError(
+                        f"discrete covariate key {tok} (column {c}) has no "
+                        "stored effect; use --force-use-unestimated-values "
+                        "to count it as 0 (covariate.cpp:673-678)"
+                    )
+        if ok and quant and k in quant:
+            for c, tok in enumerate(quant[k], start=1):
+                if tok in MISSING_TOKENS:
+                    ok = False
+                    break
+                value += float(tok) * quant_by_col.get(c, 0.0)
+        if ok:
+            result[k] = value
+    return result
+
+
 def read_covariates(
     discrete_path: Optional[str] = None,
     quantitative_path: Optional[str] = None,

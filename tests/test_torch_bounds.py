@@ -38,6 +38,15 @@ def test_k3_bound():
     assert ms == pytest.approx(0.91, abs=0.005)
 
 
+def test_k3_bound_at_the_igwas_shape():
+    """K3 on the igwas refit (s = 3 covariates, K = 15): 42 FMAs per
+    element of g, 0.63 ms, still above g's single read (0.60 ms)."""
+    ms, by = cs.k3_bound(M_SNPS, N, 3, 15)
+    assert by == "operations"
+    assert ms == pytest.approx(2 * 42 * M_SNPS * N / 67e12 * 1e3)
+    assert ms == pytest.approx(0.63, abs=0.005)
+
+
 @pytest.mark.parametrize(
     "n_bytes, fp32, int8, want",
     [

@@ -120,13 +120,41 @@ def test_options_parse_like_jax(argv):
       str(GOLDEN / "testcovar.txt")], "item 7"),
     (["--simulate", "--bfile", str(GOLDEN / "cohort"), "--effect-sizes",
       str(GOLDEN / "causal.txt")], "item 8"),
-    (["--glmm", "--grm", "g"] + BASE, "item 8"),
+    (["--glmm", "--grm", str(GOLDEN / "golden"), "--bfile", str(GOLDEN / "cohort"),
+      "--pheno", "{case_control}", "--mesh", "none"], "item 8"),
     (["--mpresiduals"] + BASE, "item 7"),
 ])
 def test_unported_analyses_name_their_roadmap_item(tmp_path, monkeypatch, argv, item):
+    """These analyses named their ROADMAP.md queue 1 item (7 or 8) until
+    it ported them.  Each now runs and writes what the JAX CLI writes, at
+    rtol 2e-5 (`--mpgwas` after `--mpresiduals` on each side; `--glmm` on
+    the golden phenotype cut at its median into 1/2 case/control codes).
+    The residual matrix `--mpresiduals` writes is binary, held in
+    tests/test_torch_mp_igwas.py."""
+    from dissect_tpu.analysis.dispatcher import main as jax_main
+    from dissect_tpu.runtime.mesh import set_mesh_context
+
     monkeypatch.setenv("DISSECT_TPU_TORCH_DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        main(argv + ["--out", str(tmp_path / "x")])
+    rows = [ln.split() for ln in (GOLDEN / "pheno.txt").read_text().splitlines()]
+    median = np.median([float(r[2]) for r in rows])
+    (tmp_path / "cc.txt").write_text(
+        "".join(f"{r[0]} {r[1]} {2 if float(r[2]) > median else 1}\n" for r in rows))
+    argv = [str(tmp_path / "cc.txt") if a == "{case_control}" else a for a in argv]
+    outs = {}
+    for side, run in (("jax", jax_main), ("torch", main)):
+        (tmp_path / side).mkdir()
+        out = ["--out", str(tmp_path / side / "x")]
+        try:
+            if argv[0] == "--mpgwas":
+                run(["--mpresiduals"] + argv[1:] + out)
+            run(argv + out)
+        finally:
+            set_mesh_context(None)
+        outs[side] = sorted(p.name for p in (tmp_path / side).iterdir() if p.suffix != ".log")
+    assert outs["torch"] == outs["jax"] and outs["jax"], item
+    for name in outs["jax"]:
+        if not name.endswith(".dat"):
+            _diff_files(tmp_path / "torch" / name, tmp_path / "jax" / name, rtol=2e-5)
 
 
 def test_multi_device_mesh_is_refused(tmp_path, monkeypatch):

@@ -34,6 +34,18 @@ Phases, each of which stops the script on failure:
                the covariate BLUEs, SNP BLUPs recomputed in float64 and the
                BLUP errors; one REML iteration's Cholesky inverse and the whole
                iteration timed apart;
+  5k. mesh     (run right after 5b) the multi-GPU path as two torchrun ranks
+               sharing the card over gloo, after a one-rank NCCL group's
+               broadcast, all_reduce and all_gather: `--make-grm`, `--reml
+               --bfile --blue --indiv-blup` and `--make-grm --diagonalize
+               --store-both` on the first 4,096 individuals with `--mesh 2
+               --force-distributed`, and `--gwas --grm --parallel-gwas`,
+               held against K1's GRM, a single-device fit of the same GRM
+               (BLUEs and BLUPs too) and the 5b fit, the PLINK path's GWAS
+               and torch.linalg.eigh; K3 must launch on both ranks, and
+               rank 0's first pass is read by four routes (K3, K3 on the
+               single-device run's product shape, plain float32, plain
+               float64: `first_pass_reading`);
   5c. pca      `--pca --bfile --num-eval 20` on the PLINK cohort (K1 builds
                the GRM in line; the randomized branch), each eigenvalue
                between 90% of and 1e-6 above a float64 eigh's, orthonormal
@@ -68,15 +80,17 @@ Phases, each of which stops the script on failure:
                genetic values less the effects of the observed genotypes.
                Every step of 5c-5j runs through main() with the launch counters
                zeroed just before and read just after;
-  6. bgen      the BGEN path: a synthetic imputed cohort of the same size in
-               UK Biobank's format (BGEN layout 2, 8-bit, zlib), dosages blurred
+  6. bgen      the BGEN path: a synthetic imputed cohort of the same
+               individuals and 25,000 variants in UK Biobank's format
+               (BGEN layout 2, 8-bit, zlib), dosages blurred
                off the hard calls, 1% missing, the same covariate and phenotype
                recipe, then `--make-grm --bgen` and `--gwas --grm --bgen`
                through main(), launch counters zeroed just before and read just
                after, and the same science checks;
   7. k3_retry  K3 held against its plain version and timed at each path's
                retry shape (the other M than all SNPs at which the path
-               launched K3, as K3's launch counter by M recorded it).
+               launched K3, as K3's launch counter by M recorded it), each
+               mesh rank's included.
 
 The last lines of standard output are the `kernels` JSON line, the card's
 name and power limit as nvidia-smi reports them, and the result line
@@ -103,7 +117,9 @@ N_INDIVIDUALS = 10_000
 N_SNPS = 50_000
 N_CAUSAL = 500
 SEED = 20261016
-BGEN_SNPS = 50_000
+# The BGEN path's variants, half the PLINK path's 50,000, to keep the
+# whole run under 600 s with the mesh phase in it
+BGEN_SNPS = 25_000
 N_MISSING_TRAIT2 = 1_000  # the bivariate phase's second trait misses these
 N_PCS = 20
 GROUP_SNPS = 5       # the grouped GWAS phase: groups of consecutive SNPs
@@ -480,6 +496,9 @@ def phase_kernels(device):
     compare_k3(gen, 777, 1000, 9, device, timed=False)
     compare_k3(gen, 300, 1000, 9, device, timed=False)
     k3 = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 4, device, timed=True)
+    # the BGEN path's M and each mesh rank's share of the PLINK path's SNPs
+    for m in sorted({BGEN_SNPS, -(-N_SNPS // MESH_RANKS)}):
+        compare_k3(gen, m, N_INDIVIDUALS, 4, device, timed=False)
     # the igwas refit's layout: s = the 3 rotated covariates, K = 15
     compare_k3(gen, 777, 1000, 3, device, timed=False)
     k3_igwas = compare_k3(gen, N_SNPS, N_INDIVIDUALS, 3, device, timed=True)
@@ -491,7 +510,8 @@ def phase_kernels(device):
 
 def k3_at_retry(device, retry_rows):
     """K3 checked and timed at each path's retry shape (its rows, n =
-    10,000, q = 4), after the paths: these launches do not count.  A
+    10,000, q = 4; each mesh rank's apart), after the paths: these
+    launches do not count.  A
     launch takes about a tenth of a millisecond here, so the held timing
     runs 200 of them."""
     gen = torch.Generator(device=device)
@@ -770,7 +790,7 @@ def write_cohort(workdir, device):
     return ["--bfile", str(prefix)], {f"rs{i:06d}" for i in causal.cpu().numpy()}
 
 
-def drive_path(tag, workdir, genotype_args, counters, expect):
+def drive_path(tag, workdir, genotype_args, counters, expect, n_snps=N_SNPS):
     """`--make-grm` then `--gwas --grm` through the CLI's main(), with
     every launch counter zeroed just before and read just after; fails if
     a kernel in `expect` was not launched.  Returns (launches, seconds,
@@ -805,11 +825,11 @@ def drive_path(tag, workdir, genotype_args, counters, expect):
         check(launches[name] > 0, f"kernel {name} was not launched on the {tag or 'plink_'}path")
     check(sum(k3_by_rows.values()) == launches["fused_refit_moments"],
           "K3's launches by M do not add up to its launches")
-    retry = {rows: count for rows, count in k3_by_rows.items() if rows != N_SNPS}
-    check(len(retry) <= 1 and all(rows < N_SNPS for rows in retry),
+    retry = {rows: count for rows, count in k3_by_rows.items() if rows != n_snps}
+    check(len(retry) <= 1 and all(rows < n_snps for rows in retry),
           f"K3 ran at M = {list(k3_by_rows)}: not one pass over all SNPs and one retry")
     for count in retry.values():
-        check(count == 2 * k3_by_rows.get(N_SNPS, 0) - 1,
+        check(count == 2 * k3_by_rows.get(n_snps, 0) - 1,
               f"K3 launches by M {k3_by_rows}: the retry did not run twice the Fisher steps")
     return launches, seconds, k3_by_rows
 
@@ -1509,6 +1529,474 @@ def time_bgen_host(path):
 
 
 # -------------------------------------------------------------------- main --
+# ---------------------------------------------------------------- phase 5k --
+MESH_RANKS = 2
+MESH_TIMEOUT_S = 420
+# The row-sharded REML (GRM built in line by the row-sharded float32
+# product) against a single-device fit of the same GRM (the mesh grm
+# step's, read back): two float64 fits of one V whose sums run in other
+# orders.  Variances, logL, BLUEs and their SEs, and the BLUPs (each
+# within the rtol plus the rtol times the largest BLUP).
+MESH_REML_RTOL = 1e-8
+# The same fit against the reml phase's float64 fit on K1's GRM: the two
+# GRMs differ by float32 summation order (within K1_REL_TOL of the scale,
+# about 1e-7 entry by entry).
+MESH_VS_K1_REML_RTOL = 1e-6
+# The D&C eigensolver step's individuals (the first of the cohort): with
+# two gloo ranks on one card it takes about 7 s at N = 4,096, and its
+# products and gloo traffic grow as N^3, about 100 s at 10,000.
+MESH_EIGH_N = 4_096
+# SNP rows per block of the first-pass reading's plain routes (float64
+# temporaries of 0.4 GB each at n = 10,000)
+READING_ROWS = 5_000
+
+
+def mesh_worker(plan_path):
+    """One torchrun rank of the mesh phase (`chip_smoke.py --mesh-worker
+    plan.json`): bring up the run's process group (gloo: the ranks share
+    cuda:0), hold broadcast, all_reduce and all_gather on CUDA tensors,
+    then run each step's argv through the CLI's main() with every launch
+    counter zeroed just before and read just after, and write this rank's
+    record (collectives, per-step seconds, dispatcher phases, launches,
+    K3 launches by M, the REML result) to <plan>.rank<r>.json.  Ends with
+    one row-sharded SPD inverse at the REML step's padded N, each of its
+    three stages timed, then rank 0's `first_pass_reading`."""
+    sys.path.insert(0, str(REPO))
+    from dissect_tpu_torch.analysis.dispatcher import main as cli_main
+    from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments
+    from dissect_tpu_torch.linalg.distributed import (
+        distributed_cholesky,
+        distributed_lauum_full,
+        distributed_trtri,
+        pick_interleave,
+    )
+    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update, syrk_triangle_packed
+    from dissect_tpu_torch.runtime.device import cli_device
+    from dissect_tpu_torch.runtime.distributed import startup_runtime
+    from dissect_tpu_torch.runtime.dtypes import configure_precision
+    from dissect_tpu_torch.runtime.timers import timers
+
+    plan = json.loads(Path(plan_path).read_text())
+    configure_precision()
+    device = cli_device()
+    torch.cuda.set_device(device)
+    ctx = startup_runtime(str(MESH_RANKS), device)
+    record = {"rank": ctx.rank, "backend": ctx.backend, "collectives": {}, "steps": {}}
+    t = torch.full((4,), float(ctx.rank + 1), dtype=torch.float64, device=device)
+    got = {"broadcast": ctx.broadcast(t.clone(), 1), "all_reduce": ctx.all_reduce(t.clone()),
+           "all_gather": ctx.all_gather(t.clone())}
+    want = {"broadcast": [2.0] * 4, "all_reduce": [3.0] * 4, "all_gather": [1.0] * 4 + [2.0] * 4}
+    for op, val in got.items():
+        record["collectives"][op] = {"device": str(val.device),
+                                     "ok": val.cpu().tolist() == want[op]}
+    counters = {"grm_fused_triangle_update": grm_fused_triangle_update,
+                "syrk_triangle_packed": syrk_triangle_packed,
+                "fused_refit_moments": fused_refit_moments}
+    # the gwas step's refit inputs on this rank, for first_pass_reading
+    import dissect_tpu_torch.analysis.dispatcher as dispatcher_module
+
+    refit, refit_call = dispatcher_module.mlm_gwas_ml_refit, {}
+
+    def recording_refit(genotypes, y, x, lam, u, null_variances, **kw):
+        if not refit_call:
+            refit_call.update(g=genotypes, y=y, x=x, lam=lam, u=u, theta0=null_variances)
+        return refit(genotypes, y, x, lam, u, null_variances, **kw)
+
+    dispatcher_module.mlm_gwas_ml_refit = recording_refit
+    for step in plan["steps"]:
+        for fn in counters.values():
+            fn.launches = 0
+        fused_refit_moments.launches_by_rows.clear()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.monotonic()
+        out = cli_main(step["argv"])
+        rec = {"seconds": time.monotonic() - t0,
+               "phases": dict(timers.elapsed),
+               "launches": {name: fn.launches for name, fn in counters.items()},
+               "k3_by_rows": {str(k): v for k, v in fused_refit_moments.launches_by_rows.items()},
+               "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        if step["name"] == "reml":
+            rec["reml"] = _reml_record(out)
+        record["steps"][step["name"]] = rec
+    dispatcher_module.mlm_gwas_ml_refit = refit
+    # one row-sharded inverse of an SPD matrix (2 I + U U^T / n) at the
+    # REML step's padded N
+    n = plan["inverse_n"]
+    r0, r1 = ctx.local_rows(n)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    u = torch.randn((n, 64), generator=gen, dtype=torch.float64).to(device)
+    a = u[r0:r1] @ u.T / n
+    a[torch.arange(r1 - r0, device=device), torch.arange(r0, r1, device=device)] += 2.0
+    # spd_inverse_logdet_cyclic's three stages, each timed
+    block = plan["block"]
+    g = pick_interleave(n, ctx.world, block)
+    stages = (("cholesky", lambda v: distributed_cholesky(v, ctx, block, g)[0]),
+              ("trtri", lambda v: distributed_trtri(v, ctx, block, g)),
+              ("lauum", lambda v: distributed_lauum_full(v, ctx, block, g)))
+    times, stage_times = [], {name: [] for name, _ in stages}
+    for _ in range(2):
+        v = a.clone()
+        ctx.barrier()
+        torch.cuda.synchronize(device)
+        t0 = time.monotonic()
+        for name, stage in stages:
+            t1 = time.monotonic()
+            v = stage(v)
+            torch.cuda.synchronize(device)
+            stage_times[name].append(time.monotonic() - t1)
+        times.append(time.monotonic() - t0)
+    record["inverse_seconds"] = times
+    record["inverse_stage_seconds"] = stage_times
+    del a, v, u
+    torch.cuda.empty_cache()
+    if ctx.rank == 0:
+        record["first_pass_reading"] = first_pass_reading(refit_call)
+    Path(f"{plan_path}.rank{ctx.rank}.json").write_text(json.dumps(record))
+    return 0
+
+
+def _reml_record(out):
+    """The fit, BLUEs and BLUPs of a SingleREMLOutput, as JSON lists."""
+    res = out.result
+    return {"variances": [float(v) for v in res.variances],
+            "log_likelihood": float(res.log_likelihood),
+            "iterations": int(res.n_iterations), "success": bool(res.success),
+            "blue": np.asarray(out.blue).tolist(), "blue_se": np.asarray(out.blue_se).tolist(),
+            "blup": np.asarray(out.blup["GRM"]).tolist(),
+            "individuals": list(out.individual_keys)}
+
+
+def first_pass_reading(call):
+    """Which SNPs of one mesh rank's share the refit's first pass sends to
+    the retry (gradient >= GRADIENT_THRESHOLD after the Fisher steps), by
+    four routes on the rank's own inputs: the refit as the rank ran it
+    (K3, M = its share); the same refit at the single-device run's shapes
+    (the share stacked twice, M = N_SNPS: the g U product, every K3
+    launch and every batched solve), its first M rows; the plain moments
+    in float32; the plain moments in float64 from a float64 g U.  Returns
+    each route's count and its disagreement with the float64 route, the
+    two shapes' disagreement, the largest |difference| of their g U
+    products and of their K3 moments at the null variances (relative to
+    the largest entry), and how many SNPs have a float64 gradient within
+    a factor of 2 of the threshold."""
+    import inspect
+
+    from dissect_tpu_torch.gwas import mlm
+    from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments, plain_refit_moments
+
+    g = call["g"]
+    m, device = g.shape[0], g.device
+    n_iterations = inspect.signature(mlm.mlm_gwas_ml_refit).parameters["n_iterations"].default
+
+    def inputs(dtype, stacked=False):
+        put = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+        u, gd = put(call["u"]), g.to(dtype)
+        g_rot = (torch.cat([gd, gd]) if stacked else gd) @ u
+        return (g_rot.contiguous(), u.T @ put(call["y"]), u.T @ put(call["x"]),
+                put(call["lam"]).contiguous(), put(np.asarray(call["theta0"], dtype=np.float64)))
+
+    def rel_diff(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    grads, diffs = {}, {}
+    for route, dtype, stacked, moments, rows in (
+            ("k3", torch.float32, False, fused_refit_moments, m),
+            ("k3_single_device_shape", torch.float32, True, fused_refit_moments, 2 * m),
+            ("plain_float32", torch.float32, False, plain_refit_moments, READING_ROWS),
+            ("plain_float64", torch.float64, False, plain_refit_moments, READING_ROWS)):
+        g_rot, *rest = inputs(dtype, stacked)
+        if route.startswith("k3"):
+            y_rot, x_rot, lam, theta0 = rest
+            s = torch.cat([x_rot, y_rot[:, None]], dim=1).contiguous()
+            thetas = theta0[None, :].expand(g_rot.shape[0], 2).contiguous()
+            diffs[route] = (g_rot[:m].clone(),
+                            fused_refit_moments(g_rot, thetas, lam, s, mlm.refit_features(s, lam))[:m])
+        # each SNP's fit is its own: the plain routes run in blocks of
+        # rows, which bounds their (rows, n) temporaries
+        grads[route] = torch.cat([
+            mlm._ml_refit_core(g_rot[i:i + rows], *rest, n_iterations, moments=moments)[-1]
+            for i in range(0, g_rot.shape[0], rows)])[:m].double().cpu().numpy()
+        del g_rot, rest
+    flags = {route: grad >= mlm.GRADIENT_THRESHOLD for route, grad in grads.items()}
+    exact = flags["plain_float64"]
+    near = np.abs(np.log2(grads["plain_float64"] / mlm.GRADIENT_THRESHOLD)) <= 1.0
+    (p1, k1), (p2, k2) = diffs["k3"], diffs["k3_single_device_shape"]
+    return {"snps": m, "flagged": {route: int(f.sum()) for route, f in flags.items()},
+            "differ_from_float64": {route: int((f != exact).sum()) for route, f in flags.items()},
+            "shapes_differ": int((flags["k3"] != flags["k3_single_device_shape"]).sum()),
+            "product_rel_diff": rel_diff(p2, p1), "k3_moments_rel_diff": rel_diff(k2, k1),
+            "float64_gradient_within_2x_of_threshold": int(near.sum())}
+
+
+def nccl_check(device):
+    """A one-rank NCCL group on the card: broadcast, all_reduce and
+    all_gather through the port's collectives module."""
+    import socket
+
+    import torch.distributed as dist
+    from dissect_tpu_torch.runtime.mesh import MeshContext
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=device)
+    try:
+        ctx = MeshContext(rank=0, world=1, device=device, backend="nccl")
+        t = torch.arange(4, dtype=torch.float64, device=device)
+        got = {"broadcast": ctx.broadcast(t.clone(), 0).cpu().tolist(),
+               "all_reduce": ctx.all_reduce(t.clone()).cpu().tolist(),
+               "all_gather": ctx.all_gather(t.clone()).cpu().tolist()}
+    finally:
+        dist.destroy_process_group()
+    for op, val in got.items():
+        check(val == [0.0, 1.0, 2.0, 3.0], f"NCCL {op} on one rank gave {val}")
+    return got
+
+
+def _grm_dat_diff(prefix_a, prefix_b, device):
+    """(max |kernel difference|, kernel scale, counts equal) of two
+    written GRMs, compared on their packed .grm.dat payloads on the card:
+    each column j holds counts[0..j, j], then kernel[j.., j]."""
+    raw = [np.fromfile(f"{p}.grm.dat", dtype=np.float64, offset=14) for p in (prefix_a, prefix_b)]
+    n = int((math.isqrt(4 * raw[0].size + 1) - 1) // 2)
+    a, b = (torch.as_tensor(r.reshape(n, n + 1), device=device) for r in raw)
+    is_count = (torch.arange(n + 1, device=device)[None, :]
+                <= torch.arange(n, device=device)[:, None])
+    diff = (a - b).abs()
+    kernel_err = float(torch.where(is_count, torch.zeros_like(diff), diff).max())
+    scale = float(torch.where(is_count, torch.zeros_like(b), b.abs()).max())
+    counts_equal = bool(torch.equal(a[is_count], b[is_count]))
+    return kernel_err, scale, counts_equal
+
+
+def _eigen_check(kernel, w, v, device):
+    """The D&C eigenpairs of `kernel` against float64 torch.linalg.eigh on
+    the card: eigenvalues within 1e-9 of the spectrum's scale, V
+    orthonormal and A V = V diag(w) within 1e-8 of the scale, and each
+    eigenvector whose eigenvalue is 1e-3 of the scale from its neighbours
+    equal to the reference's up to sign within 1e-6."""
+    a = torch.as_tensor(kernel, device=device, dtype=torch.float64)
+    w = torch.as_tensor(w, device=device, dtype=torch.float64)
+    v = torch.as_tensor(v, device=device, dtype=torch.float64)
+    w_ref, v_ref = torch.linalg.eigh(a)
+    scale = float(w_ref.abs().max())
+    n = a.shape[0]
+    eig_err = float((w - w_ref).abs().max()) / scale
+    ortho = float((v.T @ v - torch.eye(n, device=device, dtype=torch.float64)).abs().max())
+    resid = float((a @ v - v * w).abs().max()) / scale
+    gaps = torch.minimum(torch.diff(w_ref, prepend=w_ref[:1] - scale),
+                         torch.diff(w_ref, append=w_ref[-1:] + scale))
+    isolated = gaps > 1e-3 * scale
+    dots = torch.abs(torch.sum(v * v_ref, dim=0))[isolated]
+    vec_err = float((1.0 - dots).abs().max()) if dots.numel() else 0.0
+    log(f"D&C eigh at N = {n}: eigenvalues {eig_err:.2e} of the scale, V^T V - I {ortho:.2e}, "
+        f"AV - VW {resid:.2e}, {int(isolated.sum())} isolated eigenvectors within {vec_err:.2e}")
+    check(eig_err <= 1e-9, "D&C eigenvalues differ from torch.linalg.eigh's")
+    check(ortho <= 1e-8 and resid <= 1e-8, "D&C eigenvectors not orthonormal eigenvectors")
+    check(vec_err <= 1e-6, "D&C eigenvectors differ from torch.linalg.eigh's up to sign")
+    return {"n": n, "eig_err": eig_err, "ortho_err": ortho, "residual": resid,
+            "isolated": int(isolated.sum()), "vec_err": vec_err}
+
+
+def inverse_collective_bytes(n, world, block):
+    """Bytes of the collectives' results on one rank in one
+    spd_inverse_logdet_cyclic at (n, world, block), in float64: each
+    step of the factor and of trtri broadcasts the b x b diagonal block
+    and all-gathers the panel's trailing rows (world x the longest
+    rank's count x b); each lauum step all-reduces a (b, n) panel."""
+    from dissect_tpu_torch.linalg.distributed import elimination_steps, pick_interleave
+
+    n_blocks = n // block
+    es = elimination_steps(n_blocks, pick_interleave(n, world, block)).reshape(world, -1)
+    entries = 0
+    for k in range(n_blocks):
+        width = int((es > k).sum(axis=1).max()) * block
+        entries += 2 * (block * block + world * width * block) + block * n
+    return 8 * entries
+
+
+def phase_mesh(workdir, reml_summary, counters, device):
+    """The multi-GPU path, as two torchrun ranks sharing the card (gloo,
+    DISSECT_TPU_TORCH_DEVICE=cuda:0): a one-rank NCCL group first, then
+    in one launch `--make-grm --mesh 2 --force-distributed` (the GRM
+    row-sharded), `--reml --bfile --blue --indiv-blup` (the row-sharded
+    float64 engine), `--gwas --grm --parallel-gwas` (K3 on each rank's
+    SNPs) and `--make-grm --diagonalize --store-both` on the first
+    MESH_EIGH_N individuals (the D&C eigensolver).  Checks:
+    the GRM against the single-device K1 GRM within K1_REL_TOL of its
+    scale and the counts exactly; the REML variances, logL, BLUEs and
+    BLUPs against a single-device float64 fit of the mesh grm step's GRM
+    (run here, after the launch) at MESH_REML_RTOL in as many iterations,
+    and the variances and logL against the reml phase's fit on K1's GRM
+    at MESH_VS_K1_REML_RTOL; .gwas.snps against the single-device run's
+    by the float32 rule on the SNPs both fitted, the unfitted counts
+    within 20% or 10 SNPs of each other, K3 launched on both ranks, and
+    rank 0's first-pass reading (`first_pass_reading`) flagging by K3 as
+    many SNPs as the rank retried; the eigenpairs as `_eigen_check`
+    says."""
+    from dissect_tpu_torch.io.grm_io import read_grm
+    from dissect_tpu_torch.reml.distributed_engine import pick_block
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    t0 = time.monotonic()
+    nccl = nccl_check(device)
+    seconds = {"mesh_nccl": time.monotonic() - t0}
+    cohort = _cohort_args(workdir)
+    steps = [
+        ("grm", ["--make-grm"] + cohort[:2] + ["--mesh", "2", "--force-distributed"]),
+        ("reml", ["--reml"] + cohort + ["--blue", "--indiv-blup", "--mesh", "2",
+                                        "--force-distributed"]),
+        ("gwas", ["--gwas", "--grm", str(workdir / "grm")] + cohort
+         + ["--mesh", "2", "--parallel-gwas"]),
+        ("eigh", ["--make-grm", "--diagonalize", "--store-both", "--keep",
+                  str(workdir / "mesh_keep.txt")] + cohort[:2]
+         + ["--mesh", "2", "--force-distributed"]),
+    ]
+    with open(workdir / "cohort.fam") as src, open(workdir / "mesh_keep.txt", "w") as dst:
+        for _, line in zip(range(MESH_EIGH_N), src):
+            dst.write(" ".join(line.split()[:2]) + "\n")
+    block = pick_block(N_INDIVIDUALS, MESH_RANKS)
+    quantum = MESH_RANKS * block
+    plan = {"steps": [{"name": name, "argv": argv + ["--out", str(workdir / f"mesh_{name}")]}
+                      for name, argv in steps],
+            "inverse_n": -(-N_INDIVIDUALS // quantum) * quantum, "block": block}
+    plan_path = workdir / "mesh_plan.json"
+    plan_path.write_text(json.dumps(plan))
+    env = dict(os.environ, DISSECT_TPU_TORCH_DEVICE="cuda:0", OMP_NUM_THREADS="4")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(MESH_RANKS), str(REPO / "chip_smoke.py"), "--mesh-worker",
+         str(plan_path)],
+        cwd=str(REPO), env=env, capture_output=True, text=True, timeout=MESH_TIMEOUT_S,
+        stdin=subprocess.DEVNULL,
+    )
+    seconds["mesh_launch"] = time.monotonic() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-8000:])
+    check(proc.returncode == 0, f"the mesh launch exited {proc.returncode}")
+    ranks = [json.loads(Path(f"{plan_path}.rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+    for rec in ranks:
+        check(rec["backend"] == "gloo", f"rank {rec['rank']} ran on {rec['backend']}")
+        for op, res in rec["collectives"].items():
+            check(res["ok"] and res["device"].startswith("cuda"),
+                  f"gloo {op} on CUDA tensors: {res}")
+    steps_by_rank = [rec["steps"] for rec in ranks]
+    for name, _ in steps:
+        seconds[f"mesh_{name}"] = max(st[name]["seconds"] for st in steps_by_rank)
+        for key, val in steps_by_rank[0][name]["phases"].items():
+            seconds[f"mesh_{name}_{key}"] = val
+
+    # 1. the row-sharded GRM against K1's
+    grm_err, scale, counts_equal = _grm_dat_diff(workdir / "mesh_grm", workdir / "grm", device)
+    log(f"mesh GRM against K1's: max |diff| {grm_err:.3e} (tol {K1_REL_TOL:g} x {scale:.3f}), "
+        f"counts exact: {counts_equal}")
+    check(grm_err <= K1_REL_TOL * scale, "the row-sharded GRM differs from K1's")
+    check(counts_equal, "the row-sharded GRM's counts differ from K1's")
+
+    # 2. the row-sharded REML against single-device float64 fits: of the
+    # same GRM (the mesh grm step's, read back), and of K1's (the reml phase)
+    fit = steps_by_rank[0]["reml"]["reml"]
+    check(fit["success"], "the distributed REML did not converge")
+    single_out, _, single_seconds, _ = _drive(
+        "mesh_reml_single", ["--reml", "--grm", str(workdir / "mesh_grm")] + cohort[2:] + [
+            "--blue", "--indiv-blup", "--out", str(workdir / "mesh_reml_single")],
+        counters, device)
+    seconds.update(single_seconds)
+    single = _reml_record(single_out)
+    check(single["success"], "the single-device fit of the mesh GRM did not converge")
+    check(fit["individuals"] == single["individuals"], "the distributed REML's individuals")
+
+    def rel_err(ours, ref, scale_share=0.0):
+        ours, ref = np.asarray(ours), np.asarray(ref)
+        return float(np.max(np.abs(ours - ref) / (np.abs(ref) + scale_share * np.abs(ref).max())))
+
+    errs = {"variances": rel_err(fit["variances"], single["variances"]),
+            "log_likelihood": rel_err(fit["log_likelihood"], single["log_likelihood"]),
+            "blue": rel_err(fit["blue"], single["blue"]),
+            "blue_se": rel_err(fit["blue_se"], single["blue_se"]),
+            "blup": rel_err(fit["blup"], single["blup"], scale_share=1.0)}
+    log(f"mesh REML: variances {fit['variances']} in {fit['iterations']} iterations, "
+        f"single-device fit of the same GRM {single['variances']} in {single['iterations']}; "
+        "relative differences " + json.dumps({k: f"{v:.2e}" for k, v in errs.items()})
+        + f" (tol {MESH_REML_RTOL:g})")
+    check(all(v <= MESH_REML_RTOL for v in errs.values()),
+          "the distributed REML differs from the single-device float64 fit of its GRM")
+    check(fit["iterations"] == single["iterations"], "the distributed REML's iterations")
+    rel = rel_err(fit["variances"], reml_summary["variances"])
+    ll_rel = rel_err(fit["log_likelihood"], reml_summary["log_likelihood"])
+    log(f"mesh REML against the fit on K1's GRM {reml_summary['variances']} in "
+        f"{reml_summary['iterations']}: relative differences {rel:.2e}, logL {ll_rel:.2e} "
+        f"(tol {MESH_VS_K1_REML_RTOL:g})")
+    check(rel <= MESH_VS_K1_REML_RTOL and ll_rel <= MESH_VS_K1_REML_RTOL,
+          "the distributed REML differs from the fit on K1's GRM")
+    check(fit["iterations"] == reml_summary["iterations"], "the distributed REML's iterations")
+    reml_phase = steps_by_rank[0]["reml"]["phases"].get("REML", float("nan"))
+    inverse_s = min(min(rec["inverse_seconds"]) for rec in ranks)
+    inverse_stage_s = {name: min(min(rec["inverse_stage_seconds"][name]) for rec in ranks)
+                       for name in ranks[0]["inverse_stage_seconds"]}
+
+    # 3. --parallel-gwas against the single-device GWAS
+    mesh_rows = _read_gwas(workdir / "mesh_gwas.gwas.snps")
+    single_rows = _read_gwas(workdir / "mlm.gwas.snps")
+    common = [s for s in single_rows if s in mesh_rows]
+    a = np.array([mesh_rows[s] for s in common])
+    b = np.array([single_rows[s] for s in common])
+    col_max = np.abs(b).max(axis=0)
+    bad = np.abs(a - b) > GOLDEN_F32_RTOL * np.abs(b) + GOLDEN_F32_RTOL * col_max
+    unfit_mesh, unfit_single = N_SNPS - len(mesh_rows), N_SNPS - len(single_rows)
+    log(f"mesh GWAS: {len(common)} SNPs fitted by both, {int(bad.sum())} outside the float32 "
+        f"rule; unfitted {unfit_mesh} (single device {unfit_single})")
+    check(not bad.any(), "--parallel-gwas differs from the single-device GWAS")
+    check(abs(unfit_mesh - unfit_single) <= max(10, 0.2 * unfit_single),
+          "--parallel-gwas unfitted count off the single-device count")
+    k3_ranks = [st["gwas"]["launches"]["fused_refit_moments"] for st in steps_by_rank]
+    check(all(k > 0 for k in k3_ranks), f"K3 launches by rank on the mesh GWAS: {k3_ranks}")
+    share = -(-N_SNPS // MESH_RANKS)
+    retry_rows = [max((int(rows) for rows in st["gwas"]["k3_by_rows"] if int(rows) != share),
+                      default=0) for st in steps_by_rank]
+    reading = ranks[0]["first_pass_reading"]
+    log(f"mesh GWAS first pass on rank 0's {reading['snps']} SNPs (retried {retry_rows[0]}): "
+        + json.dumps(reading))
+    check(reading["flagged"]["k3"] == retry_rows[0],
+          "the first-pass reading's K3 route does not flag the SNPs rank 0 retried")
+
+    # 4. the D&C eigensolver against torch.linalg.eigh of the same GRM
+    diag = read_grm(str(workdir / "mesh_eigh"))
+    kernel = read_grm(str(workdir / "mesh_eigh.nondiagonal"))["kernel"]
+    eig = _eigen_check(kernel, diag["eigenvalues"], diag["eigenvectors"], device)
+    del diag, kernel
+    summary = {
+        "nccl_one_rank": nccl,
+        "collectives_gloo_cuda": ranks[0]["collectives"],
+        "grm_max_abs_err": grm_err, "grm_scale": scale,
+        "reml": {**{k: fit[k] for k in ("variances", "log_likelihood", "iterations", "success")},
+                 "vs_same_grm": errs, "variance_rel_err_vs_k1_grm": rel,
+                 "logl_rel_err_vs_k1_grm": ll_rel,
+                 "seconds_per_iteration": reml_phase / fit["iterations"],
+                 "inverse_seconds_per_iteration_in_fit": steps_by_rank[0]["reml"]["phases"].get(
+                     "DistributedInverse", float("nan")) / fit["iterations"],
+                 "inverse_seconds": inverse_s, "inverse_stage_seconds": inverse_stage_s,
+                 "inverse_n": plan["inverse_n"], "block": block},
+        "gwas": {"unfitted": unfit_mesh, "unfitted_single": unfit_single,
+                 "k3_launches_by_rank": k3_ranks, "retry_rows_by_rank": retry_rows,
+                 "k3_by_rows_by_rank": [st["gwas"]["k3_by_rows"] for st in steps_by_rank],
+                 "first_pass_reading": reading},
+        "eigh": {**eig,
+                 "seconds": steps_by_rank[0]["eigh"]["phases"].get("DiagonalizeGRM")},
+        "peak_device_gb_by_step": {n: [st[n]["peak_device_gb"] for st in steps_by_rank]
+                                   for n in steps_by_rank[0]},
+        "gloo_bytes_per_cholesky_inverse": inverse_collective_bytes(
+            plan["inverse_n"], MESH_RANKS, block),
+    }
+    log("mesh path (gloo correctness run, two ranks on one card): " + json.dumps(summary))
+    launches = {name: sum(st[step]["launches"][name] for st in steps_by_rank for step in st)
+                for name in steps_by_rank[0]["grm"]["launches"]}
+    return launches, seconds, summary
+
+
 def nvidia_smi_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1571,6 +2059,9 @@ def main():
             plink_dir, counters, summary["plink"]["null_variances"], device)
         seconds.update(reml_seconds)
         peak_gb["reml"] = summary["reml"]["peak_device_gb"]
+        mesh_launches, mesh_seconds, summary["mesh"] = phase_mesh(
+            plink_dir, summary["reml"], counters, device)
+        seconds.update(mesh_seconds)
         pca_launches, path_seconds, summary["pca"], kern = phase_pca(plink_dir, counters, device)
         seconds.update(path_seconds)
         bivar_launches, path_seconds, summary["bivar"] = phase_bivar(
@@ -1604,7 +2095,7 @@ def main():
         torch.cuda.reset_peak_memory_stats(device)
         bgen_launches, path_seconds, bgen_k3 = drive_path(
             "bgen_", bgen_dir, bgen_args, counters,
-            expect=("syrk_triangle_packed", "fused_refit_moments"))
+            expect=("syrk_triangle_packed", "fused_refit_moments"), n_snps=BGEN_SNPS)
         seconds.update(path_seconds)
         peak_gb["bgen"] = torch.cuda.max_memory_allocated(device) / 1e9
         t0 = time.monotonic()
@@ -1614,9 +2105,13 @@ def main():
 
         t0 = time.monotonic()
         k3_by_rows = {"plink": plink_k3, "bgen": bgen_k3}
-        retry_timed = k3_at_retry(device, {
-            tag: max((rows for rows in by_rows if rows != N_SNPS), default=0)
-            for tag, by_rows in k3_by_rows.items()})
+        retry_rows = {
+            tag: max((rows for rows in by_rows if rows != {"plink": N_SNPS, "bgen": BGEN_SNPS}[tag]),
+                     default=0)
+            for tag, by_rows in k3_by_rows.items()}
+        for r, rows in enumerate(summary["mesh"]["gwas"]["retry_rows_by_rank"]):
+            retry_rows[f"mesh_rank{r}"] = rows
+        retry_timed = k3_at_retry(device, retry_rows)
         seconds["k3_retry"] = time.monotonic() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1628,7 +2123,8 @@ def main():
                    "regional": regional_launches[entry["name"]],
                    "mpresiduals": mp_launches[entry["name"]],
                    "igwas": igwas_launches[entry["name"]],
-                   "glmm": glmm_launches[entry["name"]]}
+                   "glmm": glmm_launches[entry["name"]],
+                   "mesh": mesh_launches[entry["name"]]}
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "fused_refit_moments":
@@ -1637,6 +2133,9 @@ def main():
                 for tag, by_rows in k3_by_rows.items()}
             entry["launches_by_shape"]["igwas"] = {
                 f"M={rows}": count for rows, count in summary["igwas"]["launches_by_rows"].items()}
+            entry["launches_by_shape"]["mesh"] = [
+                {f"M={rows}": count for rows, count in by_rows.items()}
+                for by_rows in summary["mesh"]["gwas"]["k3_by_rows_by_rank"]]
             first = retry_timed.get("plink") or retry_timed.get("bgen")
             entry["retry_ms"] = first["ms"] if first else None
             entry["retry_shape"] = first["shape"] if first else None
@@ -1657,4 +2156,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--mesh-worker":
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

@@ -21,6 +21,7 @@ import numpy as np
 
 from dissect_tpu_torch.analysis.predict import SnpEffect, predict_phenotypes
 from dissect_tpu_torch.io.bed import PlinkData
+from dissect_tpu_torch.runtime.log import output_open
 
 
 @dataclasses.dataclass
@@ -34,7 +35,7 @@ class AccuracyResult:
     filtered_snps: List[str]
 
     def write(self, prefix: str, stats):
-        with open(prefix + ".snps.accuracies", "w") as fh:
+        with output_open(prefix + ".snps.accuracies", "w") as fh:
             fh.write("SNP ALLELE STDEV MEAN EFFECT CORR DELTA\n")
             for i, snp in enumerate(self.snp_names):
                 fh.write(

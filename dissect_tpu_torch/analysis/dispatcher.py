@@ -13,8 +13,15 @@ GWAS routes that need a dense V (extra kernels,
 `--pca`, `--bivar-reml`/`--multi-reml`, regional `--reml`, grouped
 `--gwas --groups/--group-all`, `--rgwas`, `--mpresiduals`, `--mpgwas`,
 `--igwas`, `--glmm`, `--simulate`, `--predict`, `--accuracy-by-snp`,
-`--cov-predict`, `--snp-stats` and `--effects`: every analysis, on one
-device (a `--mesh` of more devices waits for ROADMAP.md queue 1 item 9).
+`--cov-predict`, `--snp-stats` and `--effects`: every analysis.
+
+A multi-rank launch (`torchrun`, runtime/distributed.py) runs the same
+analysis on every rank; `use_distributed` decides where the mesh takes
+part, at the JAX package's call sites: the GRM built row-sharded, the
+dense REML fits row-sharded, the diagonalizations and full PCA solves
+by the divide-and-conquer eigensolver, and, under --parallel-gwas, each
+rank testing its share of the SNPs (of the groups, for grouped GWAS).
+Only rank 0 writes the log and the result files.
 """
 
 from __future__ import annotations
@@ -71,9 +78,23 @@ from dissect_tpu_torch.reml.single import SingleREML
 from dissect_tpu_torch.reml.snp_blup import compute_snp_blup, write_snp_blup
 from dissect_tpu_torch.reml.summary import write_blue, write_blup_indiv, write_reml_summary
 from dissect_tpu_torch.runtime.checkpoint import read_initial_variances
-from dissect_tpu_torch.runtime.device import check_single_device, cli_device
+from dissect_tpu_torch.runtime.device import cli_device
+from dissect_tpu_torch.runtime.distributed import (
+    mesh_summary,
+    shutdown_runtime,
+    startup_runtime,
+    use_distributed,
+)
+from dissect_tpu_torch.runtime.distributed_io import (
+    decode_snp_shard,
+    gather_snp_fields,
+    snp_row_index,
+    stream_grm_sharded,
+    to_host,
+)
 from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE, bulk_dtype, configure_precision
 from dissect_tpu_torch.runtime.log import get_logger, result_open, set_zout
+from dissect_tpu_torch.runtime.mesh import RowShards
 from dissect_tpu_torch.runtime.options import Options
 from dissect_tpu_torch.runtime.timers import timers
 
@@ -87,37 +108,61 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _map_snp_chunks(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, device,
-                    chunk: Optional[int] = None) -> list:
+                    chunk: Optional[int] = None, ctx=None, gathers: bool = False) -> list:
     """fn(z, snp_names) over blocks of `chunk` SNPs (GWAS_CHUNK_SNPS by
     default; bounds device and host memory at genome scale,
     gwas.cpp:126-312): each block's raw dosages are uploaded, and z is
     their centered rows in float64 on `device`.  Returns fn's results,
-    block by block."""
+    block by block.
+
+    With a MeshContext (--parallel-gwas, gwas.cpp:557-687) each rank
+    decodes only its `shard_snp_rows` share of a block and fn sees those
+    rows, called as fn(z, names, n_snps_in_block); each per-SNP field of
+    its result is then all-gathered back to the block, unless fn gathers
+    itself (`gathers`)."""
     chunk = chunk or GWAS_CHUNK_SNPS
     names = data.snp_names
     parts = []
     for start in range(0, data.n_snps, chunk):
         stop = min(start + chunk, data.n_snps)
-        dosage = torch.as_tensor(data.decode_chunk(start, stop)).to(device)
-        z = centered_genotypes(dosage, torch.as_tensor(mean[start:stop]).to(device))
-        parts.append(fn(z, names[start:stop]))
+        if ctx is None:
+            dosage = torch.as_tensor(data.decode_chunk(start, stop)).to(device)
+            z = centered_genotypes(dosage, torch.as_tensor(mean[start:stop]).to(device))
+            parts.append(fn(z, names[start:stop]))
+            continue
+        idx = start + snp_row_index(stop - start, ctx)
+        dosage = torch.as_tensor(decode_snp_shard(data, start, stop, ctx)).to(device)
+        z = centered_genotypes(dosage, torch.as_tensor(mean[idx]).to(device))
+        res = fn(z, [names[i] for i in idx], stop - start)
+        if gathers:
+            parts.append(res)
+            continue
+        res = gather_snp_fields(res, stop - start, ctx)
+        if hasattr(res, "snp_names"):
+            res.snp_names = list(names[start:stop])
+        parts.append(res)
     return parts
 
 
 def _chunked_gwas(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, device, dtype,
-                  chunk: Optional[int] = None, row_variance: bool = False):
+                  chunk: Optional[int] = None, row_variance: bool = False, ctx=None,
+                  gathers: bool = False):
     """Run a per-SNP GWAS solver fn(z) over SNP blocks (`_map_snp_chunks`,
-    z in `dtype`) and concatenate.
+    z in `dtype`) and concatenate; with a MeshContext each rank tests its
+    share of every block (fn(z, n_snps) when the solver gathers itself).
 
     Returns (results, per-SNP variance of the centered rows or None)."""
     variances = []
 
-    def run(z, _):
+    def run(z, _, *m):
         if row_variance:
-            variances.append(_host(torch.var(z, dim=1, unbiased=True)))
-        return fn(z.to(dtype))
+            var = _host(torch.var(z, dim=1, unbiased=True))
+            variances.append(var if ctx is None else to_host(var, m[0], ctx))
+        return fn(z.to(dtype), *m) if gathers else fn(z.to(dtype))
 
-    parts: List[GwasResults] = _map_snp_chunks(run, data, mean, device, chunk)
+    parts: List[GwasResults] = _map_snp_chunks(
+        run, data, mean, device, chunk, ctx=ctx, gathers=gathers
+    )
     row_var = np.concatenate(variances) if row_variance else None
     if len(parts) == 1:
         return parts[0], row_var
@@ -282,12 +327,16 @@ class Analysis:
             kern = self._kernel_from_loaded("GRM", grm_io.read_grm(a.grm))
         elif allow_compute and (a.bfile or a.bfile_list or a.bgen):
             data = self.load_genotype()
-            kern = grm_from_plink(
-                data,
-                flat_normalization=a.grm_flat_norm,
-                drop_monomorphic=a.keep_zerostd_snps,
-                device=self.device,
-            )
+            ctx = use_distributed(a, data.n_individuals)
+            if ctx is not None:
+                kern = self._grm_sharded(data, ctx)
+            else:
+                kern = grm_from_plink(
+                    data,
+                    flat_normalization=a.grm_flat_norm,
+                    drop_monomorphic=a.keep_zerostd_snps,
+                    device=self.device,
+                )
         else:
             raise ValueError("no GRM input (--grm / --bfile / --bgen)")
         if a.grm_epi:
@@ -303,6 +352,41 @@ class Analysis:
         if a.grm_cutoff is not None:
             kern = kern.prune(a.grm_cutoff)
         return kern
+
+    def _grm_sharded(self, data: Union[PlinkData, BgenData], ctx) -> Kernel:
+        """Multi-rank GRM (the pdsyrk_ grid path, matrix.cpp:2682 /
+        kernel.cpp:92-109): each rank decodes its SNP rows of every chunk
+        and accumulates its row block of the kernel and counts
+        (`stream_grm_sharded`).  The kernel keeps them as RowShards, 8 N^2
+        / world bytes a rank, through sanitizing, filtering and the
+        row-sharded REML engine; a step that needs the GRM whole (the
+        writers, the eigensolvers, PCA, the multi-trait slices) gathers
+        it."""
+        stats = data.stats()
+        if bool(stats.monomorphic.any()):
+            if not self.args.keep_zerostd_snps:
+                bad = [data.snps[i].name for i in np.nonzero(stats.monomorphic)[0][:10]]
+                raise ValueError(
+                    "monomorphic SNPs present (filter them first), e.g. " + ", ".join(bad)
+                )
+            data = data.filter(keep_snps=[
+                data.snps[i].name for i in np.nonzero(~stats.monomorphic)[0]
+            ])
+            stats = data.stats()
+        self.log.message(f"GRM row-sharded over {ctx.world} ranks")
+        n = data.n_individuals
+        kern, counts = stream_grm_sharded(
+            data, ctx, stats.mean, 1.0 / stats.std,
+            flat_normalization=self.args.grm_flat_norm,
+        )
+        return Kernel(
+            name="GRM",
+            type=KernelType.GRM,
+            individual_keys=data.individual_keys,
+            matrix=RowShards(kern.to(self.device), n, ctx),
+            counts=RowShards(counts.to(self.device), n, ctx),
+            snp_names=data.snp_names,
+        )
 
     def load_phenotypes(self, columns: Optional[List[int]] = None):
         a = self.args
@@ -342,7 +426,7 @@ class Analysis:
             )
         if a.diagonalize:
             with timers.phase("DiagonalizeGRM"):
-                diag = kern.diagonalize()
+                diag = kern.diagonalize(mesh=use_distributed(a, kern.n))
             self._write_grm_diagonalized(diag)
             if a.store_both:
                 # --store-both: also keep the undecomposed GRM
@@ -363,6 +447,7 @@ class Analysis:
             kern = self.load_grm()
 
         def write(k, prefix):
+            k = k.whole()
             counts = (
                 _host(k.counts)
                 if k.counts is not None
@@ -451,6 +536,7 @@ class Analysis:
 
     @timers.timed("WriteGRM")
     def _write_grm(self, kern: Kernel, prefix: str):
+        kern = kern.whole()
         grm_io.write_grm(
             prefix, _host(kern.matrix), _host(kern.counts), kern.individual_keys, kern.snp_names
         )
@@ -462,7 +548,7 @@ class Analysis:
         with timers.phase("LoadGRM" if (a.grm or a.gcta_grms_gz) else "ComputeGRM"):
             kern = self.load_grm()
         with timers.phase("PCA"):
-            pca = compute_pca(kern, n_components=a.num_eval)
+            pca = compute_pca(kern, n_components=a.num_eval, mesh=use_distributed(a, kern.n))
         with timers.phase("WritePCA"):
             pca.write(a.out)
         self.log.message(f"PCA stored at [ {a.out}.pca.* ]")
@@ -573,11 +659,19 @@ class Analysis:
             # per-individual residual weights E = diag(w) (--weights /
             # --weights-col, options.cpp:770-778, reml.cpp:334-446)
             env_weights = read_phenotype(a.weights, a.weights_col)
+        ctx = use_distributed(a, kern.n)
+        if ctx is not None:
+            self.log.message(
+                f"REML on {ctx.world} ranks (row-sharded covariance, "
+                "distributed blocked Cholesky)"
+            )
         sreml = SingleREML(
             kernels, pheno, covar, self.options.reml_options(),
             environmental_weights=env_weights,
             scale_weights=not a.no_scale_weights,
             device=self.device,
+            mesh=ctx,
+            distributed_block=a.default_block_size,
         )
         initial_variances = None
         replicates = a.subsample_replicates
@@ -726,11 +820,17 @@ class Analysis:
                 read_covariates(c or None, q or None, default_keys=p.keys)
                 for c, q, p in zip(cfiles, qfiles, phenos)
             ]
+        # the joint covariance is (sum_t n_t)^2: gate on the total dimension
+        ctx = use_distributed(a, sum(len(p.keys) for p in phenos))
+        if ctx is not None:
+            self.log.message(f"multi-trait REML on {ctx.world} ranks (row-sharded covariance)")
         sreml = MultiREML(
             [kern], phenos, covariates, self.options.reml_options(),
             use_correlations=a.use_correlations,
             environmental_covariance=not a.no_environment_cov,
             device=self.device,
+            mesh=ctx,
+            distributed_block=a.default_block_size,
         )
         initial_variances = None
         if a.initial_variances:
@@ -787,6 +887,10 @@ class Analysis:
             covariance = self._gwas_covariance([kern] + extras, common, pheno, covar)
         if a.groups or a.group_all:
             return self._grouped_gwas(data, y, x, stats, covariance)
+        # the --parallel-gwas analog (gwas.cpp:557-687): each rank tests
+        # its share of every SNP chunk; y, X and V stay replicated
+        ctx = use_distributed(a, len(common), force=a.parallel_gwas)
+        gathers = False
         if covariance is not None:
             lam, u, (vg, ve) = covariance
             if a.gwas_use_null_variances:
@@ -795,15 +899,19 @@ class Analysis:
                 v_inv = (u * (1.0 / (vg * lam + ve))) @ u.T
                 solver = lambda z: mlm_gwas_fixed_v(z, y, x, v_inv)
             else:
-                solver = lambda z: mlm_gwas_ml_refit(
-                    z, y, x, lam, u, (vg, ve), retry_unfitted=a.gwas_retry_unfitted
+                gathers = ctx is not None  # the retry's warm start is global
+                solver = lambda z, *m: mlm_gwas_ml_refit(
+                    z, y, x, lam, u, (vg, ve), retry_unfitted=a.gwas_retry_unfitted,
+                    mesh_ctx=ctx, n_snps=m[0] if m else None,
                 )
         else:
             solver = lambda z: ols_gwas(z, y, x)
+        if ctx is not None:
+            self.log.message(f"GWAS: SNPs sharded over {ctx.world} ranks")
         with timers.phase("GWAS"):
             res, row_var = _chunked_gwas(
                 solver, data, stats.mean, self.device, bulk_dtype(self.device),
-                row_variance=a.group_var,
+                row_variance=a.group_var, ctx=ctx, gathers=gathers,
             )
         with timers.phase("WriteGWAS"):
             self._write_gwas(res, data, covar, common, row_var)
@@ -823,6 +931,7 @@ class Analysis:
 
         Returns (eigenvalues, eigenvectors, (v_genetic, v_residual)),
         the eigenpairs as float64 tensors on the device."""
+        ctx = use_distributed(self.args, len(common))
         kernels = [k.filter_individuals(common) for k in kernels]
         if len(kernels) == 1:
             base = kernels[0]
@@ -832,7 +941,8 @@ class Analysis:
                 "(internal REML fit, gwas.cpp:1506-1592)"
             )
             sreml = SingleREML(
-                kernels, pheno, covar, self.options.reml_options(), device=self.device
+                kernels, pheno, covar, self.options.reml_options(), device=self.device,
+                mesh=ctx, distributed_block=self.args.default_block_size,
             )
             fit = sreml.compute(compute_blue=False)
             if not fit.result.success:
@@ -841,7 +951,7 @@ class Analysis:
                     "computed (gwas.cpp:1563-1569)"
                 )
             theta = torch.as_tensor(fit.result.variances, dtype=torch.float64, device=self.device)
-            v = sreml.engine.cc.assemble_dense(theta)
+            v = sreml.model.compile(self.device).assemble_dense(theta)
             sigma_g = float(fit.result.variances[sreml.model.genetic_variance_indices()].sum())
             base = Kernel(
                 name="V",
@@ -850,7 +960,7 @@ class Analysis:
                 matrix=v / sigma_g,
             )
         with timers.phase("DiagonalizeGRM"):
-            diag = base.diagonalize()
+            diag = base.diagonalize(mesh=ctx)
         with timers.phase("NullREML"):
             null = SingleREML(
                 [diag], pheno, covar, self.options.reml_options(), device=self.device
@@ -901,11 +1011,22 @@ class Analysis:
         effects.  The raw dosages go to the device once."""
         a = self.args
         grouping = by_group_file(data, a.groups) if a.groups else by_all(data)
+        # --parallel-gwas: each rank fits a contiguous share of the groups
+        # (the grouped-communicator path, gwas.cpp:557-687); per-individual
+        # group effects (--group-effects) are one matrix over all groups,
+        # so that run keeps every group on every rank
+        ctx = None if a.group_effects else use_distributed(a, len(y), force=a.parallel_gwas)
+        local = grouping
+        if ctx is not None:
+            keys = list(grouping)
+            lo, hi = ctx.local_rows(len(keys))
+            local = type(grouping)((k, grouping[k]) for k in keys[lo:hi])
+            self.log.message(f"grouped GWAS: groups sharded over {ctx.world} ranks")
         with timers.phase("LoadGenotypes"):
             rows = CenteredRows.from_data(data, self.device)
         with timers.phase("GWAS"):
             results, effects = grouped_gwas(
-                rows, data.snp_names, grouping, y, x,
+                rows, data.snp_names, local, y, x,
                 significance_threshold=a.significance_threshold,
                 correlation_threshold=a.snp_corr_threshold,
                 compute_effects=a.group_effects,
@@ -917,6 +1038,16 @@ class Analysis:
             flagged = flag_correlated_in_groups(
                 rows, data.snp_names, results, a.snp_corr_threshold
             )
+            if ctx is not None:
+                gathered = ctx.all_gather_object((results, flagged))
+                merged = {}
+                for part, _ in gathered:
+                    merged.update(part)
+                # grouped_gwas's own order: by kept-SNP count, then file order
+                order = sorted((k for k in grouping if k in merged),
+                               key=lambda k: len(merged[k].snp_names))
+                results = {k: merged[k] for k in order}
+                flagged = set().union(*(f for _, f in gathered))
         del rows
         name_to_i = {s.name: i for i, s in enumerate(data.snps)}
         c = x.shape[1]
@@ -1103,7 +1234,8 @@ class Analysis:
         phenos = self.load_phenotypes(columns)
         covar = self.load_covariate(phenos[0].keys)
         lm = compute_mp_residuals(
-            kern, phenos, [f"pheno_{c}" for c in columns], covar, self.options.reml_options()
+            kern, phenos, [f"pheno_{c}" for c in columns], covar, self.options.reml_options(),
+            mesh=use_distributed(a, kern.n),
         )
         with timers.phase("WriteREML"):
             lm.save(a.out + ".residuals")
@@ -1156,8 +1288,9 @@ class Analysis:
             lm_centered = lm.center_columns()
             dtype = bulk_dtype(self.device)
             res = MpGwasResults.concatenate(_map_snp_chunks(
-                lambda z, names: mp_gwas(z.to(dtype), names, lm_centered, center=False),
+                lambda z, names, *_: mp_gwas(z.to(dtype), names, lm_centered, center=False),
                 data, mean, self.device,
+                ctx=use_distributed(a, len(common), force=a.parallel_gwas),
             ))
         with timers.phase("WriteGWAS"):
             res.write(a.out)
@@ -1234,11 +1367,11 @@ class Analysis:
             with timers.phase("LoadGRM"):
                 kern = self.load_grm(allow_compute=False).filter_individuals(common)
             with timers.phase("DiagonalizeGRM"):
-                diag = kern.diagonalize()
+                diag = kern.diagonalize(mesh=use_distributed(a, kern.n))
             covariance = (diag.eigenvalues, diag.eigenvectors)
             del kern
 
-        def run_igwas(z, names):
+        def run_igwas(z, names, *_):
             return igwas(
                 z, names, covar.matrix, covar.column_names,
                 test_x=None if test_covar is None else test_covar.matrix,
@@ -1250,9 +1383,10 @@ class Analysis:
         with timers.phase("GWAS"):
             # the rows stay float64 for the per-SNP start variances;
             # igwas takes them to the bulk dtype
-            res = IGwasResults.concatenate(
-                _map_snp_chunks(run_igwas, data, stats.mean, self.device)
-            )
+            res = IGwasResults.concatenate(_map_snp_chunks(
+                run_igwas, data, stats.mean, self.device,
+                ctx=use_distributed(a, len(common), force=a.parallel_gwas),
+            ))
         with timers.phase("WriteGWAS"):
             res.write(a.out)
             self._write_igwas_reference_files(res, data, stats)
@@ -1541,16 +1675,22 @@ def main(argv=None):
     return what it returned (e.g. a SingleREMLOutput for --reml)."""
     configure_precision()
     options = Options.parse(argv)
-    check_single_device(options.args.mesh)
     device = cli_device()
     log = get_logger()
-    log.attach_file(options.args.out)
+    failed = True
     try:
+        # the run's mesh before anything is logged or written: only rank
+        # 0 does either (a multi-rank launch is torchrun's; a failed
+        # rank stops the launch, its peers' collectives fail with it)
+        ctx = startup_runtime(options.args.mesh, device)
+        log.attach_file(options.args.out)
         log.verbose = options.args.verbose
         options.echo(log)
         set_zout(options.args.zout)
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "CPU"
         log.message(f"Device: {device} ({name})")
+        if ctx is not None and ctx.world > 1:
+            log.message(mesh_summary(ctx))
         timers.reset()  # in-process sequential runs must not accumulate
         with timers.phase("Total"):
             output = Analysis(options, device).run()
@@ -1560,6 +1700,8 @@ def main(argv=None):
             f"Analysis finished in {total:.2f}s"
             + (f" (peak RSS {mem['VmHWM']})" if "VmHWM" in mem else "")
         )
+        failed = False
     finally:
         log.close()
+        shutdown_runtime(failed)
     return output

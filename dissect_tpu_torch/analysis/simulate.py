@@ -19,6 +19,7 @@ import numpy as np
 
 from dissect_tpu_torch.io.bed import PlinkData
 from dissect_tpu_torch.io.ids import order_as_template
+from dissect_tpu_torch.runtime.log import output_open
 
 
 @dataclasses.dataclass
@@ -32,14 +33,14 @@ class SimulationResult:
     n_controls: int = 0
 
     def write(self, prefix: str):
-        with open(prefix + ".simulated.effects", "w") as fh:
+        with output_open(prefix + ".simulated.effects", "w") as fh:
             for snp, eff in self.causal_effects.items():
                 fh.write(f"{snp} {eff:.8g}\n")
-        with open(prefix + ".simulated.phenos", "w") as fh:
+        with output_open(prefix + ".simulated.phenos", "w") as fh:
             for key, y in zip(self.individual_keys, self.phenotypes):
                 fid, iid = key.split("@", 1)
                 fh.write(f"{fid} {iid} {y:.8g}\n")
-        with open(prefix + ".simulated.blups", "w") as fh:
+        with output_open(prefix + ".simulated.blups", "w") as fh:
             for key, g, e in zip(
                 self.individual_keys, self.genetic_effects, self.environmental_effects
             ):

@@ -35,6 +35,7 @@ from dissect_tpu_torch.linalg.small import inv_spd_auto, solve_spd_auto, solve_s
 from dissect_tpu_torch.reml.engine import _host
 from dissect_tpu_torch.runtime.dtypes import bulk_dtype
 from dissect_tpu_torch.runtime.stats import chi2_sf, f_sf, t_sf
+from dissect_tpu_torch.runtime.log import output_open
 
 
 @dataclasses.dataclass
@@ -55,7 +56,7 @@ class IGwasResults:
     n_base: Optional[int] = None  # leading columns of beta that are BASE covariates
 
     def write(self, prefix: str):
-        with open(prefix + ".igwas", "w") as fh:
+        with output_open(prefix + ".igwas", "w") as fh:
             fh.write("SNP COVAR BETA SE PV\n")
             for i, snp in enumerate(self.snp_names):
                 for j, cov in enumerate(self.covariate_names):

@@ -33,12 +33,15 @@ Two deliberate departures from the JAX package:
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments, moment_columns
 from dissect_tpu_torch.gwas.ols import GwasResults
 from dissect_tpu_torch.linalg.small import inv_spd_auto, solve_spd_auto, solve_spd_small
+from dissect_tpu_torch.runtime.distributed_io import to_host
 from dissect_tpu_torch.runtime.stats import chi2_sf
 
 # per-SNP gradient threshold of a converged refit (gwas.cpp:546-554)
@@ -288,6 +291,8 @@ def mlm_gwas_ml_refit(
     n_iterations: int = 15,
     retry_unfitted: bool = True,
     moments=fused_refit_moments,
+    mesh_ctx=None,
+    n_snps: Optional[int] = None,
 ) -> GwasResults:
     """Exact mixed-model GWAS: per-SNP ML variance refits.
 
@@ -303,7 +308,16 @@ def mlm_gwas_ml_refit(
     starts (gwas.cpp:836-869): SNPs that fail the gradient test are refit
     once with theta0 = mean over the converged SNPs' fitted variances and
     double the iterations.
+
+    mesh_ctx (--parallel-gwas): `genotypes` are this rank's rows of the
+    `n_snps` SNPs, laid out by `shard_snp_rows`; each rank refits its
+    rows (K3 on the card), the retry's warm start is the mean over ALL
+    converged SNPs (padding excluded), so the result equals the
+    single-device run, and the per-SNP arrays are all-gathered.
     """
+    gather = (lambda a: a) if mesh_ctx is None else (
+        lambda a: to_host(a, n_snps, mesh_ctx).astype(a.dtype, copy=False)
+    )
     g = genotypes
     dtype, device = g.dtype, g.device
     put = lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
@@ -321,9 +335,10 @@ def mlm_gwas_ml_refit(
         _host(v) for v in (b, a_inv_diag, thetas, logl, grad_norm)
     )
     if retry_unfitted:
-        unfit = grad_norm >= GRADIENT_THRESHOLD  # a NaN gradient is not retried
-        fit_thetas = thetas[~unfit]
-        if unfit.any() and fit_thetas.size:
+        unfit_all = gather(grad_norm) >= GRADIENT_THRESHOLD  # a NaN gradient is not retried
+        fit_thetas = gather(thetas)[~unfit_all]
+        unfit = grad_norm >= GRADIENT_THRESHOLD
+        if unfit_all.any() and fit_thetas.size and unfit.any():
             idx = np.flatnonzero(unfit)
             theta_warm = put(fit_thetas.mean(axis=0))
             sub = g_rot[torch.as_tensor(idx, device=device)].contiguous()
@@ -332,6 +347,9 @@ def mlm_gwas_ml_refit(
             )
             b[idx], a_inv_diag[idx], thetas[idx] = _host(b2), _host(ad2), _host(th2)
             logl[idx], grad_norm[idx] = _host(ll2), _host(gn2)
+    b, a_inv_diag, thetas, logl, grad_norm = (
+        gather(v) for v in (b, a_inv_diag, thetas, logl, grad_norm)
+    )
     # reduced (covariate-only) ML fit for the chi2 LRT GROUPPV
     # (computeGroupSignificance ML branch, gwas.cpp:940-961)
     _, _, _, logl_null, _ = _ml_fit_diagonal(lam, y_rot, x_rot, theta0, n_iterations)

@@ -37,6 +37,7 @@ from dissect_tpu_torch.reml.builders import build_variance_model, initial_residu
 from dissect_tpu_torch.reml.engine import REMLEngine, REMLOptions, _host
 from dissect_tpu_torch.runtime.stats import t_sf
 from dissect_tpu_torch.runtime.timers import timers
+from dissect_tpu_torch.runtime.log import output_open
 
 
 def compute_mp_residuals(
@@ -45,8 +46,11 @@ def compute_mp_residuals(
     phenotype_names: Optional[Sequence[str]] = None,
     covariate: Optional[Covariate] = None,
     options: Optional[REMLOptions] = None,
+    mesh=None,
 ) -> LabeledMatrix:
-    """Per-phenotype REML residuals in the GRM eigenbasis.
+    """Per-phenotype REML residuals in the GRM eigenbasis (with a `mesh`
+    of more than one rank, diagonalized by the divide-and-conquer
+    solver).
 
     Individuals = intersection of the kernel, every phenotype column and
     the covariates, in kernel order.  Everything runs on the kernel's
@@ -66,7 +70,7 @@ def compute_mp_residuals(
     n = len(common)
 
     with timers.phase("DiagonalizeGRM"):
-        kern = kernel.filter_individuals(common).diagonalize()
+        kern = kernel.filter_individuals(common).diagonalize(mesh=mesh)
     u = kern.eigenvectors.to(torch.float64)
     lam = kern.eigenvalues.to(torch.float64)
     put = lambda a: torch.as_tensor(a, dtype=torch.float64, device=u.device)
@@ -102,7 +106,7 @@ class MpGwasResults:
     def write(self, prefix: str):
         """One .mpgwas table: SNP PHENO BETA SE T PV (reference layout
         storeResultsMultiplePhenotype, gwasmp.cpp)."""
-        with open(prefix + ".mpgwas", "w") as fh:
+        with output_open(prefix + ".mpgwas", "w") as fh:
             fh.write("SNP PHENO BETA SE T PV\n")
             for i, snp in enumerate(self.snp_names):
                 for j, pheno in enumerate(self.phenotype_names):

@@ -20,6 +20,7 @@ import struct
 from typing import List, Tuple
 
 import numpy as np
+from dissect_tpu_torch.runtime.log import output_open
 
 _HEADER_FMT = "<4s2B2B B B 4B"  # 14 bytes
 
@@ -69,11 +70,11 @@ def unpack_kernel(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def write_ids_snps(prefix: str, individual_keys: List[str], snp_names: List[str]):
-    with open(prefix + ".grm.ids", "w") as fh:
+    with output_open(prefix + ".grm.ids", "w") as fh:
         for key in individual_keys:
             fid, iid = key.split("@", 1)
             fh.write(f"{fid} {iid}\n")
-    with open(prefix + ".grm.snps", "w") as fh:
+    with output_open(prefix + ".grm.snps", "w") as fh:
         for name in snp_names:
             fh.write(name + "\n")
 
@@ -104,7 +105,7 @@ def write_grm(
     """Write a normalized GRM in the reference's binary format."""
     write_ids_snps(prefix, individual_keys, snp_names)
     packed = pack_kernel(np.asarray(kernel, dtype=np.float64), np.asarray(counts, dtype=np.float64))
-    with open(prefix + ".grm.dat", "wb") as fh:
+    with output_open(prefix + ".grm.dat", "wb") as fh:
         fh.write(_header(0x1))
         # Fortran order = ScaLAPACK's column-major global layout
         fh.write(packed.T.astype(np.float64).tobytes())
@@ -118,10 +119,10 @@ def write_grm_diagonalized(
     snp_names: List[str],
 ):
     write_ids_snps(prefix, individual_keys, snp_names)
-    with open(prefix + ".grm.dat", "wb") as fh:
+    with output_open(prefix + ".grm.dat", "wb") as fh:
         fh.write(_header(0x3))
         fh.write(np.asarray(eigenvectors, dtype=np.float64).T.tobytes())
-    with open(prefix + ".grm.diag", "wb") as fh:
+    with output_open(prefix + ".grm.diag", "wb") as fh:
         fh.write(np.asarray(eigenvalues, dtype=np.float64).tobytes())
 
 
@@ -161,13 +162,13 @@ def write_gcta_grm_gz(prefix: str, kernel, counts, individual_keys):
     """Write the GCTA gz format (for interop testing)."""
     import gzip
 
-    with open(prefix + ".grm.id", "w") as fh:
+    with output_open(prefix + ".grm.id", "w") as fh:
         for key in individual_keys:
             fid, iid = key.split("@", 1)
             fh.write(f"{fid}\t{iid}\n")
     kernel = np.asarray(kernel)
     counts = np.asarray(counts)
-    with gzip.open(prefix + ".grm.gz", "wt") as fh:
+    with output_open(prefix + ".grm.gz", "wb") as raw, gzip.open(raw, "wt") as fh:
         n = len(individual_keys)
         for i in range(n):
             for j in range(i + 1):

@@ -17,6 +17,7 @@ import struct
 from typing import List, Sequence
 
 import numpy as np
+from dissect_tpu_torch.runtime.log import output_open
 
 _HEADER = b"EFFECTS" + bytes([0x5A, 0x99, 0x1, 0x1, 8, 0, 0])
 
@@ -77,11 +78,11 @@ class LabeledMatrix:
 
     # --- IO ------------------------------------------------------------------
     def save(self, prefix: str):
-        with open(prefix + ".rowids", "w") as fh:
+        with output_open(prefix + ".rowids", "w") as fh:
             fh.write("".join(l + "\n" for l in self.row_labels))
-        with open(prefix + ".colids", "w") as fh:
+        with output_open(prefix + ".colids", "w") as fh:
             fh.write("".join(l + "\n" for l in self.col_labels))
-        with open(prefix + ".dat", "wb") as fh:
+        with output_open(prefix + ".dat", "wb") as fh:
             fh.write(_HEADER)
             fh.write(self.values.T.tobytes())  # column-major, ScaLAPACK layout
 

@@ -32,6 +32,31 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import numpy as np
 import torch
 
+from dissect_tpu_torch.runtime.mesh import RowShards
+
+
+@dataclasses.dataclass
+class DiagonalMatrix:
+    """An (n, n) diagonal element matrix kept as its (n,) diagonal: the
+    identity and diag(w) of a model whose kernels are row-sharded, so
+    that no rank forms an N x N matrix for them."""
+
+    values: torch.Tensor
+
+    ndim = 2
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.values.shape[0], self.values.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
 
 class ParameterType(enum.Enum):
     """Parity: ParameterAttributes type (covariancematrix.h:107-120)."""
@@ -155,7 +180,7 @@ class CovarianceModel:
         asymmetric cross-trait blocks), or (n,) diagonal (eigenvalues) in
         diagonal mode.  `compile` checks each dense element's matrix
         against its block's shape."""
-        m = torch.as_tensor(matrix)
+        m = matrix if isinstance(matrix, (RowShards, DiagonalMatrix)) else torch.as_tensor(matrix)
         if self.diagonal:
             if tuple(m.shape) != (self.n,):
                 raise ValueError(f"matrix {name}: shape {tuple(m.shape)} != ({self.n},)")
@@ -264,9 +289,12 @@ class CovarianceModel:
         return model
 
     # --- compilation ---------------------------------------------------------
-    def compile(self, device=None, dtype=torch.float64) -> "CompiledCovariance":
+    def compile(self, device=None, dtype=torch.float64, matrices: bool = True) -> "CompiledCovariance":
         """The model on `device`; by default on the one device its
-        matrices already live on (never moved to the host unasked)."""
+        matrices already live on (never moved to the host unasked).
+        With matrices=False only the structure (coefficients, blocks) is
+        compiled and each element matrix is an empty placeholder: the
+        row-sharded REML engine places its own local rows."""
         if device is None:
             devices = {m.device for m in self.matrices.values()}
             if len(devices) != 1:
@@ -292,7 +320,10 @@ class CovarianceModel:
                     f"{tuple(m.shape)} != block shape {expected}"
                 )
             if e.matrix_name not in mats:
-                mats[e.matrix_name] = m.to(device=device, dtype=dtype)
+                mats[e.matrix_name] = (
+                    m.to(device=device, dtype=dtype) if matrices
+                    else torch.empty(0, device=device, dtype=dtype)
+                )
             pids.append(
                 -1 if e.parameter_name is None else self._variance_index[e.parameter_name]
             )

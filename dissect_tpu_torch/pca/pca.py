@@ -3,10 +3,11 @@
 Parity: pca.{h,cpp}: eigendecompose the GRM (pdsyev_, pca.cpp:36-67),
 keep the top --num-eval eigenvectors, write `.pca.eigenvalues` /
 `.pca.eigenvectors` (pca.cpp:69-101).  Eigenvalues are reported in
-descending order.  Port of dissect_tpu/pca/pca.py without its `mesh`
-argument (ROADMAP.md, queue 1 item 9).  Both solves run in float64 on
-the kernel's device (linalg/eigen.py); for k << N the randomized
-subspace iteration avoids the full O(N^3) solve.
+descending order.  Port of dissect_tpu/pca/pca.py.  Both solves run in
+float64 on the kernel's device (linalg/eigen.py); for k << N the
+randomized subspace iteration avoids the full O(N^3) solve, and with a
+mesh of more than one rank the full solve is the divide-and-conquer
+`distributed_eigh` (linalg/dc_eigen.py).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 
 from dissect_tpu_torch.linalg.eigen import eigh_full, eigh_topk
 from dissect_tpu_torch.model.kernels import Kernel
+from dissect_tpu_torch.runtime.log import output_open
 
 
 @dataclasses.dataclass
@@ -35,10 +37,10 @@ class PCA:
         header — all of them when the full spectrum was computed;
         eigenvectors as 'FID IID v1 v2 ...'."""
         evals = self.all_eigenvalues if self.all_eigenvalues is not None else self.eigenvalues
-        with open(prefix + ".pca.eigenvalues", "w") as fh:
+        with output_open(prefix + ".pca.eigenvalues", "w") as fh:
             for w in evals:
                 fh.write(f"{w:.{precision}g}\n")
-        with open(prefix + ".pca.eigenvectors", "w") as fh:
+        with output_open(prefix + ".pca.eigenvectors", "w") as fh:
             for i, key in enumerate(self.individual_keys):
                 fid, iid = key.split("@", 1)
                 row = " ".join(f"{v:.{precision}g}" for v in self.eigenvectors[i])
@@ -49,6 +51,7 @@ def compute_pca(
     kernel: Kernel,
     n_components: int = 20,
     randomized: Optional[bool] = None,
+    mesh=None,
 ) -> PCA:
     """Top-k eigenpairs of a kernel.
 
@@ -72,7 +75,12 @@ def compute_pca(
     if randomized:
         w, v = eigh_topk(kernel.dense(), k=k)
         return PCA(individual_keys=keys, eigenvalues=w.cpu().numpy(), eigenvectors=v.cpu().numpy())
-    w, v = eigh_full(kernel.dense())
+    if mesh is not None and mesh.world > 1:
+        from dissect_tpu_torch.linalg.dc_eigen import distributed_eigh
+
+        w, v = distributed_eigh(kernel.dense(), ctx=mesh)
+    else:
+        w, v = eigh_full(kernel.dense())
     w_all = w.cpu().numpy()[::-1]
     return PCA(
         individual_keys=keys,

@@ -18,10 +18,12 @@ import torch
 
 from dissect_tpu_torch.model.covariance import (
     CovarianceModel,
+    DiagonalMatrix,
     EffectType,
     ParameterType,
     VarianceTransform,
 )
+from dissect_tpu_torch.runtime.mesh import RowShards
 
 
 def initial_residual_variance(y: np.ndarray, x: np.ndarray) -> float:
@@ -66,9 +68,10 @@ def build_variance_model(
     first `parameter_unfix_after` Newton steps
     (remlStepsToUnfixExpKernelParameter, options.cpp:143).
 
-    Kernel matrices may be tensors on a device; the environmental
-    identity (or diag of `environmental_weights`) is made on the first
-    kernel's device, in float64.
+    Kernel matrices may be tensors on a device, or RowShards in a
+    multi-rank run; the environmental identity (or diag of
+    `environmental_weights`) is made on the first kernel's device, in
+    float64, and kept as a DiagonalMatrix beside row-sharded kernels.
     """
     parameter_kernels = parameter_kernels or {}
     k = len(kernel_matrices)
@@ -80,7 +83,9 @@ def build_variance_model(
     for name, mat in zip(kernel_names, kernel_matrices):
         model.insert_matrix(name, mat)
     first = kernel_matrices[0]
-    device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+    device = first.device if isinstance(first, (torch.Tensor, RowShards)) else torch.device("cpu")
+    # row-sharded kernels (a multi-rank run): E stays its diagonal
+    compact = any(isinstance(m, RowShards) for m in kernel_matrices)
     if environmental_weights is not None:
         # per-individual residual weights: E = diag(w) (--weights,
         # reml.cpp:334-446).  Incompatible with the eigenrotated
@@ -90,11 +95,12 @@ def build_variance_model(
                 "environmental weights cannot be combined with a "
                 "diagonalized kernel"
             )
-        identity = torch.diag(
-            torch.as_tensor(np.asarray(environmental_weights, dtype=np.float64), device=device)
-        )
+        w = torch.as_tensor(np.asarray(environmental_weights, dtype=np.float64), device=device)
+        identity = DiagonalMatrix(w) if compact else torch.diag(w)
     elif diagonal:
         identity = torch.ones(n, dtype=torch.float64, device=device)
+    elif compact:
+        identity = DiagonalMatrix(torch.ones(n, dtype=torch.float64, device=device))
     else:
         identity = torch.eye(n, dtype=torch.float64, device=device)
     model.insert_matrix("E", identity)

@@ -123,6 +123,9 @@ class REMLEngine:
     Everything runs in float64 on `device`.
     """
 
+    # the row-sharded subclass places its own rows of each matrix
+    compiles_matrices = True
+
     def __init__(
         self,
         model: CovarianceModel,
@@ -135,7 +138,7 @@ class REMLEngine:
         self.model = model
         self.device = torch.device(device)
         self.dtype = torch.float64
-        self.cc = model.compile(self.device, self.dtype)
+        self.cc = model.compile(self.device, self.dtype, matrices=self.compiles_matrices)
         self.options = options or REMLOptions()
         self.dimension = model.n_total
         self.y = torch.as_tensor(y, device=self.device).to(self.dtype)

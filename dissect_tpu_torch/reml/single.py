@@ -4,9 +4,10 @@ Parity: singlereml.{h,cpp} — intersect individuals with phenotype and
 covariates (GRM order is load-bearing, reml.cpp:344-374), build the
 covariance model, fit, and emit summary/BLUE/BLUP outputs
 (SingleREML::compute, singlereml.cpp:56-228).  Port of
-dissect_tpu/reml/single.py without its `mesh` and `distributed_block`
-arguments: the row-sharded engine comes with multi-GPU (ROADMAP.md,
-queue 1 item 9).
+dissect_tpu/reml/single.py: with a `mesh` of more than one rank a dense
+fit runs the row-sharded DistributedREMLEngine
+(reml/distributed_engine.py), its Cholesky panel `distributed_block`
+wide (--default-block-size).
 
 Two branches:
   dense      any number of kernels, each an (n, n) matrix upcast once to
@@ -84,9 +85,13 @@ class SingleREML:
         environmental_weights: Optional[Phenotype] = None,
         scale_weights: bool = True,
         device="cuda",
+        mesh=None,
+        distributed_block: Optional[int] = None,
     ):
         self.options = options or REMLOptions()
         self.device = torch.device(device)
+        self.mesh = mesh if mesh is not None and mesh.world > 1 else None
+        self.distributed_block = distributed_block
         if covariate is None:
             covariate = read_covariates(default_keys=phenotype.keys)
         # individual intersection, GRM-ordered (reml.cpp:262-387)
@@ -134,8 +139,12 @@ class SingleREML:
         else:
             self.y, self.x = put(y), put(x)
 
-    def _dense_matrices(self, kernels: Sequence[Kernel]) -> List[torch.Tensor]:
-        """Each kernel's dense matrix, upcast once to float64 on the device."""
+    def _dense_matrices(self, kernels: Sequence[Kernel]) -> list:
+        """Each kernel's dense matrix, upcast once to float64 on the
+        device.  On a mesh it stays as it is, row-sharded or whole: the
+        row-sharded engine upcasts only each rank's rows."""
+        if self.mesh is not None:
+            return [k.matrix if k.sharded else k.dense().to(self.device) for k in kernels]
         return [k.dense().to(device=self.device, dtype=torch.float64) for k in kernels]
 
     def compute(
@@ -236,13 +245,16 @@ class SingleREML:
         return out
 
     def _make_engine(self, model, y=None, x=None, options=None):
-        return REMLEngine(
-            model,
-            self.y if y is None else y,
-            self.x if x is None else x,
-            self.options if options is None else options,
-            device=self.device,
-        )
+        y = self.y if y is None else y
+        x = self.x if x is None else x
+        options = self.options if options is None else options
+        if self.mesh is not None and not self.diagonal:
+            from dissect_tpu_torch.reml.distributed_engine import DistributedREMLEngine
+
+            return DistributedREMLEngine(
+                model, y, x, self.mesh, options, block=self.distributed_block
+            )
+        return REMLEngine(model, y, x, options, device=self.device)
 
     def subsample_prefit(
         self,

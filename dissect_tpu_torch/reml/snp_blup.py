@@ -30,6 +30,7 @@ from dissect_tpu_torch.io.bed import PlinkData
 from dissect_tpu_torch.io.bgen import BgenData
 from dissect_tpu_torch.io.ids import order_as_template
 from dissect_tpu_torch.linalg.syrk import standardize_chunk
+from dissect_tpu_torch.runtime.log import output_open
 
 # SNP rows per device chunk: 8,192 x 10,000 float64 is 0.66 GB
 SNP_BLUP_CHUNK = 8192
@@ -87,7 +88,7 @@ def compute_snp_blup(
 def write_snp_blup(prefix: str, name: str, result: dict, pheno_suffix: str = ""):
     """Write .<name>.blup.snps (reml.cpp:3330-3346)."""
     fname = f"{prefix}.{name.replace(' ', '_')}{pheno_suffix}.blup.snps"
-    with open(fname, "w") as fh:
+    with output_open(fname, "w") as fh:
         fh.write("SNP ALLELE BLUP STDEV MEAN NBLUP\n")
         for i, snp in enumerate(result["snp_names"]):
             blup = result["blup"][i]

@@ -21,6 +21,7 @@ import tempfile
 from typing import List, Optional
 
 import numpy as np
+from dissect_tpu_torch.runtime.mesh import is_root
 
 
 @dataclasses.dataclass
@@ -32,6 +33,8 @@ class REMLCheckpoint:
     rel_diff: float = float("inf")
 
     def save(self, path: str):
+        if not is_root():
+            return
         payload = {
             "iteration": self.iteration,
             "theta": [float(t) for t in self.theta],

@@ -2,8 +2,11 @@
 
 The JAX CLI takes its platform override from DISSECT_TPU_PLATFORM
 (dissect_tpu/runtime/distributed.py:95-109); the port reads
-DISSECT_TPU_TORCH_DEVICE.  Without it the CLI runs on the CUDA card,
-and with no card it stops: it never falls back to the CPU on its own.
+DISSECT_TPU_TORCH_DEVICE.  Without it the CLI runs on the CUDA card
+(card LOCAL_RANK under a torchrun launch: one card per rank), and with
+no card it stops: it never falls back to the CPU on its own.  With it,
+every rank of a launch uses the named device, which is how ranks share
+one card or run on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ class DeviceUnavailable(RuntimeError):
 
 
 def cli_device() -> torch.device:
-    """The device named by DISSECT_TPU_TORCH_DEVICE, else the first card."""
+    """The device named by DISSECT_TPU_TORCH_DEVICE, else card LOCAL_RANK
+    (card 0 outside a torchrun launch)."""
     requested = os.environ.get(DEVICE_ENV, "").strip()
     if requested:
         device = torch.device(requested)
@@ -31,14 +35,10 @@ def cli_device() -> torch.device:
         raise DeviceUnavailable(
             f"no CUDA device is visible; set {DEVICE_ENV}=cpu to run on the CPU"
         )
-    return torch.device("cuda", 0)
-
-
-def check_single_device(mesh: str) -> None:
-    """--mesh: the port runs on one device until the multi-GPU slice
-    (ROADMAP.md, queue 1 item 9)."""
-    if mesh not in ("auto", "none", "1", "1x1"):
-        raise NotImplementedError(
-            f"--mesh {mesh}: multi-device runs are not ported yet "
-            "(ROADMAP.md queue 1, item 9)"
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if local >= torch.cuda.device_count():
+        raise DeviceUnavailable(
+            f"LOCAL_RANK {local} but only {torch.cuda.device_count()} CUDA device(s) "
+            f"are visible; set {DEVICE_ENV}=cuda:0 to run every rank on one card"
         )
+    return torch.device("cuda", local)

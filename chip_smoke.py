@@ -6,10 +6,16 @@ Phases, each of which stops the script on failure:
 
   1. build     compile every hand-written kernel under dissect_tpu_torch/csrc/
                (one nvcc per source, all started together);
-  2. kernels   hold each kernel (K1, K2, K3) against its plain PyTorch version
-               on the card, at ragged shapes and at the shape the main paths
-               give it, and time kernel, plain version and (where one exists)
-               the single PyTorch call that computes the same function, with
+  2. kernels   hold each kernel (K1, K2, K3; the genotype decoders K4
+               bed_decode, K5 bed_counts, K6 bgen_decode_l2, K7
+               bgen_decode_l1) against its plain PyTorch version on the card,
+               at ragged shapes and at the shape the main paths give it (K4-K7
+               bit-exact, NaN positions equal: N % 4 in {1, 2, 3}, an
+               individual index that drops and reorders, all-missing rows,
+               1-, 3-, 8-, 12- and 16-bit and phased BGEN blocks and one K6
+               must refuse), and time kernel, plain version and (where one
+               exists) the single PyTorch call that computes the same
+               function (for K4 the lookup gather lut[rows.long()]), with
                each kernel's bound (bytes at the memory rate, float32 flops
                and int8 tensor-core operations each at its pipe's rate);
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
@@ -86,11 +92,19 @@ Phases, each of which stops the script on failure:
                off the hard calls, 1% missing, the same covariate and phenotype
                recipe, then `--make-grm --bgen` and `--gwas --grm --bgen`
                through main(), launch counters zeroed just before and read just
-               after, and the same science checks;
+               after, and the same science checks; then `--make-grm --bgen`
+               on a layout-1 (v1.1) copy of 2,048 variants x 2,000 samples,
+               which K7 decodes, against the source dosages' GRM;
   7. k3_retry  K3 held against its plain version and timed at each path's
                retry shape (the other M than all SNPs at which the path
                launched K3, as K3's launch counter by M recorded it), each
                mesh rank's included.
+
+Every CLI step that reads --bfile must launch K4 and (unless it needs no
+SNP statistics: --simulate, --predict) K5, every mesh rank's steps
+included; every step that reads --bgen must launch K6 or K7 and parse no
+block on the host; no step may run a decoder's plain version on a CUDA
+tensor.
 
 The last lines of standard output are the `kernels` JSON line, the card's
 name and power limit as nvidia-smi reports them, and the result line
@@ -128,7 +142,17 @@ MP_H2 = (0.5, 0.3, 0.1, 0.0)  # the mp phase's phenotype columns (the first is t
 PREVALENCE = 0.3     # the glmm phase's case share, cut from the trait's liability
 IGWAS_SUBSET = 2_048  # SNPs of the igwas phase's K3-vs-float64 comparison
 GLMM_SMALL = (2_000, 5_000)  # individuals x SNPs of the glmm card-vs-CPU fileset
-GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's and K2's row count on the main paths
+GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's, K2's and K4's row count on the main paths
+BLOCK_ROWS = 8192  # PlinkData's row block: K5's row count in stats() (io/bed.py BLOCK_ROWS)
+BGEN_BATCH = 1024  # read_bgen's batch: K6's blocks per launch (io/bgen.py _BATCH)
+# The layout-1 BGEN step's variants and individuals (a corner of the BGEN
+# cohort), and its GRM's distance from the source dosages' GRM: layout 1
+# rounds each probability to 1/32768, a dosage error under 2e-4, which
+# moves a GRM entry (a mean of products of standardized dosages) by about
+# that much relative to its scale of 1.
+BGEN_L1_SNPS = 2_048
+BGEN_L1_N = 2_000
+BGEN_L1_GRM_ATOL = 1e-3
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
 # One NVIDIA H100 SXM (NVIDIA data sheet, dense rates): float32 outside the
@@ -477,6 +501,205 @@ def compare_k3(gen, m, n, q, device, timed, iters=10):
     }
 
 
+# K4-K7, the genotype decoders (io/genotype_kernels.py): bit-exact against
+# their plain versions, so the check is equality, with NaN positions equal.
+# They move bytes and do next to no arithmetic: each bound is the bytes
+# read once and written once at the memory rate.
+def k4_bound(m, n, n_out=None):
+    """K4: the packed rows read, the int8 dosages written, the int32
+    individual index read when there is one."""
+    cols = 0 if n_out is None else 4 * n_out
+    return bound_ms(m * ((n + 3) // 4) + m * (n if n_out is None else n_out) + cols, 0)
+
+
+def k5_bound(m, n, n_out=None):
+    """K5: the packed rows read, 4 int64 counts a row written, the index
+    read when there is one."""
+    return bound_ms(m * ((n + 3) // 4) + 32 * m + (0 if n_out is None else 4 * n_out), 0)
+
+
+def bgen_bound(n_bytes, n_variants, n_samples):
+    """K6, K7: the blocks' bytes, their int64 offsets and lengths read;
+    the float32 dosages and int32 statuses written."""
+    return bound_ms(n_bytes + 16 * n_variants + 4 * n_variants * n_samples + 4 * n_variants, 0)
+
+
+def _packed_on_card(gen, m, n, device):
+    """(m, ceil(n/4)) random .bed rows, the last byte's unused codes
+    random too, and row 1 all missing."""
+    rows = torch.randint(0, 256, (m, (n + 3) // 4), generator=gen, device=device,
+                         dtype=torch.uint8)
+    rows[min(1, m - 1)] = 0b01010101
+    return rows
+
+
+def _cols_on_card(gen, n, device):
+    """An individual index that drops a tenth of n and reorders the rest."""
+    perm = torch.randperm(n, generator=gen, device=device)
+    return perm[: n - n // 10].to(torch.int32).contiguous()
+
+
+def _same_bits(a, b):
+    """Equal values, NaN positions equal (torch.equal sees NaN != NaN)."""
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(nan_a, nan_b)) and bool(
+        torch.equal(torch.where(nan_a, 0.0, a), torch.where(nan_b, 0.0, b)))
+
+
+def _max_abs_diff(a, b):
+    """max |a - b| in float64 over the positions where neither is NaN (0
+    where there are none)."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    both = ~(torch.isnan(a) | torch.isnan(b))
+    return float((a - b).abs()[both].max()) if bool(both.any()) else 0.0
+
+
+def compare_k4(gen, m, n, device, with_cols, timed):
+    """K4 against its plain version (the lookup table as a torch gather),
+    with an individual index that drops and reorders or without one; the
+    one-call lookup gather lut[rows.long()] timed as its library call."""
+    from dissect_tpu_torch.io import genotype_kernels as gk
+
+    packed = _packed_on_card(gen, m, n, device)
+    cols = _cols_on_card(gen, n, device) if with_cols else None
+    out = gk.bed_decode(packed, n, cols)
+    ref = gk.plain_bed_decode(packed, n, cols)
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(out, ref))
+    err = _max_abs_diff(out, ref)
+    log(f"K4 m={m} n={n} cols={'dropped and reordered' if with_cols else 'all'}: "
+        f"bit-exact {equal}, max abs err {err}")
+    check(equal, "K4 disagrees with its plain version")
+    if not timed:
+        return None
+    lut = gk._byte_lut(device)
+    n_out = n if cols is None else cols.shape[0]
+    b_ms, b_by = k4_bound(m, n, None if cols is None else n_out)
+    return {
+        "name": "bed_decode", "route": "cuda", "source": "dissect_tpu_torch/csrc/bed_decode.cu",
+        "replaces": "dissect_tpu/native/bed_decode.cpp:36", "max_abs_err": err,
+        "ms": time_ms(lambda: gk.bed_decode(packed, n, cols), iters=50, held=True),
+        "plain_ms": time_ms(lambda: gk.plain_bed_decode(packed, n, cols), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": time_ms(lambda: lut[packed.long()], iters=5),
+        "shape": {"m": m, "n": n, "n_bytes": packed.shape[1], "n_out": n_out},
+    }
+
+
+def compare_k5(gen, m, n, device, with_cols, timed):
+    """K5's counts against its plain version (a reduction over the plain
+    decode), over all individuals or a dropped and reordered index."""
+    from dissect_tpu_torch.io import genotype_kernels as gk
+
+    packed = _packed_on_card(gen, m, n, device)
+    cols = _cols_on_card(gen, n, device) if with_cols else None
+    out = gk.bed_counts(packed, n, cols)
+    ref = gk.plain_bed_counts(packed, n, cols)
+    torch.cuda.synchronize()
+    n_out = n if cols is None else cols.shape[0]
+    equal = bool(torch.equal(out, ref)) and bool((out.sum(1) == n_out).all())
+    err = _max_abs_diff(out, ref)
+    log(f"K5 m={m} n={n} cols={'dropped and reordered' if with_cols else 'all'}: "
+        f"bit-exact {equal}, max abs err {err}")
+    check(equal, "K5 disagrees with its plain version")
+    if not timed:
+        return None
+    b_ms, b_by = k5_bound(m, n, None if cols is None else n_out)
+    return {
+        "name": "bed_counts", "route": "cuda", "source": "dissect_tpu_torch/csrc/bed_decode.cu",
+        "replaces": "dissect_tpu/native/bed_decode.cpp:59", "max_abs_err": err,
+        "ms": time_ms(lambda: gk.bed_counts(packed, n, cols), iters=50, held=True),
+        "plain_ms": time_ms(lambda: gk.plain_bed_counts(packed, n, cols), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"m": m, "n": n, "n_bytes": packed.shape[1]},
+    }
+
+
+def _layout2_block(rng, n, bits, phased, ploidy):
+    """One uncompressed layout-2 block of random `bits`-bit values."""
+    acc = 0
+    for i, v in enumerate(rng.integers(0, 2 ** bits, size=2 * n).tolist()):
+        acc |= v << (i * bits)
+    probs = acc.to_bytes((2 * n * bits + 7) // 8, "little")
+    return (np.array([n], "<u4").tobytes() + np.array([2], "<u2").tobytes() + bytes([2, 2])
+            + bytes(ploidy) + bytes([phased, bits]) + probs)
+
+
+def _ragged_l2_blocks(rng, n):
+    """Layout-2 blocks at 1, 3, 8, 12 and 16 bits, unphased and phased, a
+    few missing samples each, one all missing, and one K6 must refuse (a
+    haploid sample: status 1)."""
+    ploidy = np.full(n, 2, dtype=np.uint8)
+    ploidy[rng.choice(n, size=max(1, n // 50), replace=False)] = 0x82
+    blocks = [_layout2_block(rng, n, bits, phased, ploidy)
+              for bits in (1, 3, 8, 12, 16) for phased in (0, 1)]
+    blocks.append(_layout2_block(rng, n, 8, 0, np.full(n, 0x82, dtype=np.uint8)))
+    haploid = ploidy.copy()
+    haploid[n // 2] = 1
+    blocks.append(_layout2_block(rng, n, 8, 0, haploid))
+    return blocks, [0] * 11 + [1]
+
+
+def _main_l2_batch(rng, k, n):
+    """The BGEN path's batch: k unphased 8-bit blocks of 10 + 3N bytes,
+    1% of samples missing, random probability bytes."""
+    width = 10 + 3 * n
+    raw = np.empty((k, width), dtype=np.uint8)
+    raw[:, :8] = np.frombuffer(np.array([n], "<u4").tobytes() + bytes([2, 0, 2, 2]), np.uint8)
+    raw[:, 8:8 + n] = np.where(rng.random((k, n)) < 0.01, 0x82, 2)
+    raw[:, 8 + n] = 0
+    raw[:, 9 + n] = 8
+    raw[:, 10 + n:] = rng.integers(0, 256, size=(k, 2 * n), dtype=np.uint8)
+    return [row.tobytes() for row in raw], [0] * k
+
+
+def _blocks_on_card(blocks, device):
+    lengths = np.array([len(b) for b in blocks], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    buf = torch.frombuffer(bytearray(b"".join(blocks)), dtype=torch.uint8).to(device)
+    return buf, torch.as_tensor(offsets, device=device), torch.as_tensor(lengths, device=device)
+
+
+def compare_bgen(kernel, blocks, statuses, n, device, timed):
+    """K6 (`bgen_decode_l2`) or K7 (`bgen_decode_l1`) against its plain
+    version on the same uploaded blocks: dosages bit-exact with NaN
+    positions equal, statuses equal and as expected."""
+    from dissect_tpu_torch.io import genotype_kernels as gk
+
+    fn, plain = getattr(gk, kernel), getattr(gk, "plain_" + kernel)
+    buf, offsets, lengths = _blocks_on_card(blocks, device)
+    out, status = fn(buf, offsets, lengths, n)
+    ref, ref_status = plain(buf, offsets, lengths, n)
+    torch.cuda.synchronize()
+    equal = _same_bits(out, ref) and bool(torch.equal(status, ref_status))
+    err = _max_abs_diff(out, ref)
+    expected = status.cpu().tolist() == list(statuses)
+    log(f"{kernel} {len(blocks)} blocks n={n}: bit-exact {equal}, max abs err {err}, "
+        f"statuses as expected {expected}")
+    check(equal, f"{kernel} disagrees with its plain version")
+    check(expected, f"{kernel} statuses {status.cpu().tolist()} != {list(statuses)}")
+    if not timed:
+        return None
+    b_ms, b_by = bgen_bound(buf.numel(), len(blocks), n)
+    start = "86" if kernel == "bgen_decode_l2" else "154"
+    return {
+        "name": kernel, "route": "cuda", "source": "dissect_tpu_torch/csrc/bgen_decode.cu",
+        "replaces": f"dissect_tpu/native/bgen_decode.cpp:{start}", "max_abs_err": err,
+        "ms": time_ms(lambda: fn(buf, offsets, lengths, n), iters=20, held=True),
+        "plain_ms": time_ms(lambda: plain(buf, offsets, lengths, n), iters=3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "shape": {"blocks": len(blocks), "n": n, "bytes": buf.numel()},
+    }
+
+
+def _main_l1_batch(rng, k, n):
+    """k layout-1 blocks of 6 N bytes: uint16 probability triples, 1% of
+    samples all zero (missing)."""
+    triples = rng.integers(0, 32769, size=(k, n, 3)).astype("<u2")
+    triples[rng.random((k, n)) < 0.01] = 0
+    return [t.tobytes() for t in triples], [0] * k
+
+
 def phase_kernels(device):
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
@@ -505,7 +728,30 @@ def phase_kernels(device):
     k3["igwas_shape"] = {key: k3_igwas[key] for key in (
         "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
         "trace_rel_err", "shape")}
-    return [k1, k2, k3]
+    # K4, K5: N % 4 in {1, 2, 3}, an index that drops and reorders, an
+    # all-missing row (row 1 of each), then the main paths' shapes: a
+    # 2,048-SNP chunk and an 8,192-row stats block, all individuals
+    for n in (1001, 1002, 1003):
+        for with_cols in (False, True):
+            compare_k4(gen, 333, n, device, with_cols, timed=False)
+            compare_k5(gen, 333, n, device, with_cols, timed=False)
+    k4 = compare_k4(gen, GRM_CHUNK, N_INDIVIDUALS, device, False, timed=True)
+    compare_k4(gen, GRM_CHUNK, N_INDIVIDUALS, device, True, timed=False)
+    k5 = compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, False, timed=True)
+    # K6, K7: every bit width, phased, missing samples, a refused block;
+    # then the BGEN path's batch (1,024 8-bit unphased blocks) and a
+    # layout-1 batch of the same size
+    rng = np.random.default_rng(SEED + 4)
+    blocks, statuses = _ragged_l2_blocks(rng, 1001)
+    compare_bgen("bgen_decode_l2", blocks, statuses, 1001, device, timed=False)
+    k6 = compare_bgen("bgen_decode_l2", *_main_l2_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
+                      N_INDIVIDUALS, device, timed=True)
+    blocks, statuses = _main_l1_batch(rng, 7, 1001)
+    compare_bgen("bgen_decode_l1", blocks + [b"\x00" * 6005], statuses + [1], 1001, device,
+                 timed=False)
+    k7 = compare_bgen("bgen_decode_l1", *_main_l1_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
+                      N_INDIVIDUALS, device, timed=True)
+    return [k1, k2, k3, k4, k5, k6, k7]
 
 
 def k3_at_retry(device, retry_rows):
@@ -790,6 +1036,72 @@ def write_cohort(workdir, device):
     return ["--bfile", str(prefix)], {f"rs{i:06d}" for i in causal.cpu().numpy()}
 
 
+# Each CLI step's launches by kernel, and its decode record (`decode_record`),
+# by step tag, as `check_decode` records them.
+STEP_LAUNCHES = {}
+STEP_DECODE = {}
+PLAIN_DECODERS = ("plain_bed_decode", "plain_bed_counts", "plain_bgen_decode_l2",
+                  "plain_bgen_decode_l1")
+
+
+def kernel_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments
+    from dissect_tpu_torch.io import genotype_kernels as gk
+    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update, syrk_triangle_packed
+
+    return {"grm_fused_triangle_update": grm_fused_triangle_update,
+            "syrk_triangle_packed": syrk_triangle_packed,
+            "fused_refit_moments": fused_refit_moments,
+            "bed_decode": gk.bed_decode, "bed_counts": gk.bed_counts,
+            "bgen_decode_l2": gk.bgen_decode_l2, "bgen_decode_l1": gk.bgen_decode_l1}
+
+
+def zero_counters(counters):
+    """Every launch counter, K3's by row count, the decoders' plain calls
+    on the card and the BGEN reader's host-parsed blocks to 0."""
+    from dissect_tpu_torch.io import genotype_kernels as gk
+    from dissect_tpu_torch.io.bgen import read_bgen
+
+    for fn in counters.values():
+        fn.launches = 0
+    counters["fused_refit_moments"].launches_by_rows.clear()
+    for name in PLAIN_DECODERS:
+        getattr(gk, name).card_calls = 0
+    read_bgen.unsupported = 0
+
+
+def decode_record():
+    """The decoders' plain calls on the card and the BGEN blocks parsed on
+    the host since `zero_counters`."""
+    from dissect_tpu_torch.io import genotype_kernels as gk
+    from dissect_tpu_torch.io.bgen import read_bgen
+
+    return {"plain_card_calls": {name: getattr(gk, name).card_calls for name in PLAIN_DECODERS},
+            "bgen_unsupported": read_bgen.unsupported}
+
+
+def check_decode(tag, argv, launches, record):
+    """A step that reads --bfile decoded its genotypes with K4 and, when it
+    needs SNP statistics (all but --simulate and --predict, which read
+    dosages only), counted them with K5; one that reads --bgen decoded
+    with K6 or K7 and parsed no block on the host; no step ran a decoder's
+    plain version on a CUDA tensor."""
+    STEP_LAUNCHES[tag] = dict(launches)
+    STEP_DECODE[tag] = record
+    check(not any(record["plain_card_calls"].values()),
+          f"{tag}: a decoder's plain version ran on the card: {record['plain_card_calls']}")
+    if "--bfile" in argv:
+        check(launches["bed_decode"] > 0, f"{tag}: K4 (bed_decode) was not launched")
+        if not {"--simulate", "--predict"} & set(argv):
+            check(launches["bed_counts"] > 0, f"{tag}: K5 (bed_counts) was not launched")
+    if "--bgen" in argv:
+        check(launches["bgen_decode_l2"] + launches["bgen_decode_l1"] > 0,
+              f"{tag}: K6/K7 (bgen_decode) was not launched")
+        check(record["bgen_unsupported"] == 0,
+              f"{tag}: {record['bgen_unsupported']} BGEN blocks were parsed on the host")
+
+
 def drive_path(tag, workdir, genotype_args, counters, expect, n_snps=N_SNPS):
     """`--make-grm` then `--gwas --grm` through the CLI's main(), with
     every launch counter zeroed just before and read just after; fails if
@@ -805,19 +1117,20 @@ def drive_path(tag, workdir, genotype_args, counters, expect, n_snps=N_SNPS):
     args = genotype_args + ["--pheno", str(workdir / "pheno.txt"),
                             "--qcovar", str(workdir / "qcovar.txt")]
     k3 = counters["fused_refit_moments"]
-    for fn in counters.values():
-        fn.launches = 0
-    k3.launches_by_rows.clear()
+    zero_counters(counters)
     seconds = {}
-    t0 = time.monotonic()
-    main(["--make-grm"] + args + ["--out", str(workdir / "grm")])
-    seconds[f"{tag}make_grm"] = time.monotonic() - t0
-    seconds.update({f"{tag}make_grm.{k}": v for k, v in timers.elapsed.items()})
-    t0 = time.monotonic()
-    main(["--gwas", "--grm", str(workdir / "grm")] + args + ["--out", str(workdir / "mlm")])
-    seconds[f"{tag}gwas_grm"] = time.monotonic() - t0
-    seconds.update({f"{tag}gwas_grm.{k}": v for k, v in timers.elapsed.items()})
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = dict.fromkeys(counters, 0)
+    for step, argv in (("make_grm", ["--make-grm"] + args + ["--out", str(workdir / "grm")]),
+                       ("gwas_grm", ["--gwas", "--grm", str(workdir / "grm")] + args
+                        + ["--out", str(workdir / "mlm")])):
+        before = {name: fn.launches for name, fn in counters.items()}
+        t0 = time.monotonic()
+        main(argv)
+        seconds[f"{tag}{step}"] = time.monotonic() - t0
+        seconds.update({f"{tag}{step}.{k}": v for k, v in timers.elapsed.items()})
+        step_launches = {name: fn.launches - before[name] for name, fn in counters.items()}
+        check_decode(f"{tag or 'plink_'}{step}", argv, step_launches, decode_record())
+        launches = {name: launches[name] + step_launches[name] for name in counters}
     k3_by_rows = dict(sorted(k3.launches_by_rows.items(), reverse=True))
     log(f"{tag or 'plink_'}path launches: " + json.dumps(launches))
     log(f"{tag or 'plink_'}path K3 launches by M: " + json.dumps(k3_by_rows))
@@ -879,7 +1192,7 @@ def phase_checks(workdir, causal, device):
     k, summary = science_checks(workdir, causal, N_SNPS)
 
     # 512-SNP subset: refit through K3 vs through its plain version, on the card
-    data = read_plink(str(workdir / "cohort"))
+    data = read_plink(str(workdir / "cohort"), device=device)
     y, x = _traits(workdir, data.individual_keys)
     from dissect_tpu_torch.gwas.grouped import centered_genotypes
     from dissect_tpu_torch.model.kernels import Kernel, KernelType
@@ -899,7 +1212,7 @@ def phase_checks(workdir, causal, device):
     theta = tuple(null.result.variances)
     idx = np.arange(0, N_SNPS, N_SNPS // 512)[:512]
     stats = data.stats()
-    dosage = torch.as_tensor(data.decode_chunk(0, N_SNPS)[idx], device=device)
+    dosage = data.filter(keep_snps=[data.snps[i].name for i in idx]).decode_rows(0, len(idx))
     z = centered_genotypes(dosage, torch.as_tensor(stats.mean[idx], device=device))
     z = z.to(torch.float32)
     args = (y, x, kern.eigenvalues, kern.eigenvectors, theta)
@@ -973,7 +1286,7 @@ def phase_reml(workdir, counters, null_variances, device):
     check(np.isfinite(out.blup["GRM"]).all(), "individual BLUPs not finite")
 
     # Py recomputed in float64 from the fitted variances and the written GRM
-    data = read_plink(str(workdir / "cohort"))
+    data = read_plink(str(workdir / "cohort"), device=device)
     check(data.individual_keys == out.individual_keys, "REML individuals are not the cohort's")
     y_h, x_h = _traits(workdir, data.individual_keys)
     k64 = torch.as_tensor(read_grm(str(workdir / "grm"))["kernel"], device=device).double()
@@ -982,7 +1295,7 @@ def phase_reml(workdir, counters, null_variances, device):
     py = _py_float64(v, y, x).cpu().numpy()
     idx = np.arange(0, N_SNPS, N_SNPS // 1000)[:1000]
     stats = data.stats()
-    d = data.decode_chunk(0, N_SNPS)[idx].astype(np.float64)
+    d = data.filter(keep_snps=[data.snps[i].name for i in idx]).dosages().astype(np.float64)
     obs = d >= 0
     z = np.where(obs, (d - stats.mean[idx, None]) / stats.std[idx, None], 0.0)
     expect = dense[0] * (z @ py) * N_INDIVIDUALS / (obs.sum(1) * N_SNPS)
@@ -1034,9 +1347,7 @@ def _drive(tag, argv, counters, device):
     from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.runtime.timers import timers
 
-    for fn in counters.values():
-        fn.launches = 0
-    counters["fused_refit_moments"].launches_by_rows.clear()
+    zero_counters(counters)
     torch.cuda.reset_peak_memory_stats(device)
     t0 = time.monotonic()
     out = main(argv)
@@ -1044,6 +1355,7 @@ def _drive(tag, argv, counters, device):
     seconds.update({f"{tag}_{k}": v for k, v in timers.elapsed.items()})
     launches = {name: fn.launches for name, fn in counters.items()}
     log(f"{tag} path launches: " + json.dumps(launches))
+    check_decode(tag, argv, launches, decode_record())
     return out, launches, seconds, torch.cuda.max_memory_allocated(device) / 1e9
 
 
@@ -1072,7 +1384,7 @@ def phase_pca(workdir, counters, device):
           f"K1 launched {launches['grm_fused_triangle_update']} times on the pca path")
     check(pca.all_eigenvalues is None and pca.eigenvalues.shape == (N_PCS,),
           "--pca did not take the randomized branch")
-    kern = grm_from_plink(read_plink(str(workdir / "cohort")), device=device)
+    kern = grm_from_plink(read_plink(str(workdir / "cohort"), device=device), device=device)
     k64 = kern.matrix.double()
     torch.cuda.synchronize()
     t0 = time.monotonic()
@@ -1329,10 +1641,10 @@ def phase_igwas(workdir, counters, kern, device):
     check(all(np.isfinite(a[fitted]).all() for a in (res.beta, res.se, res.p, res.group_p)),
           "non-finite igwas output on fitted SNPs")
 
-    data = read_plink(str(workdir / "cohort"))
+    data = read_plink(str(workdir / "cohort"), device=device)
     _, x = _traits(workdir, data.individual_keys)
     idx = np.arange(0, N_SNPS, N_SNPS // IGWAS_SUBSET)[:IGWAS_SUBSET]
-    dosage = torch.as_tensor(data.decode_chunk(0, N_SNPS)[idx], device=device)
+    dosage = data.filter(keep_snps=[data.snps[i].name for i in idx]).decode_rows(0, len(idx))
     z = centered_genotypes(dosage, torch.as_tensor(data.stats().mean[idx], device=device))
     names = [data.snps[i].name for i in idx]
     cov_names = ["mean", "quantitative_1", "quantitative_2"]
@@ -1386,7 +1698,7 @@ def phase_glmm(workdir, counters, device):
     against CPU: the same acceptance rate, betas at the same tolerance."""
     from dissect_tpu_torch.analysis.dispatcher import main
     from dissect_tpu_torch.glm.glmm import GLMM
-    from dissect_tpu_torch.io.bed import PlinkData, read_plink, write_plink
+    from dissect_tpu_torch.io.bed import read_plink, write_plink
 
     argv = lambda cohort, out: ["--glmm", "--bfile", str(cohort), "--pheno",
                                 str(workdir / "cc.txt"), "--qcovar", str(workdir / "qcovar.txt"),
@@ -1401,9 +1713,9 @@ def phase_glmm(workdir, counters, device):
     check(0.0 <= result.acceptance_rate < 1.0, f"acceptance rate {result.acceptance_rate}")
 
     n_small, m_small = GLMM_SMALL
-    data = read_plink(str(workdir / "cohort"))
-    small = PlinkData(snps=data.snps[:m_small], individuals=data.individuals[:n_small],
-                      _dosage=np.ascontiguousarray(data.decode_chunk(0, m_small)[:, :n_small]))
+    data = read_plink(str(workdir / "cohort"), device=device)
+    small = data.filter(keep_snps=data.snp_names[:m_small],
+                        keep_individuals=data.individual_keys[:n_small])
     write_plink(str(workdir / "small"), small)
     t0 = time.monotonic()
     main(argv(workdir / "small", workdir / "glmm_card"))
@@ -1466,10 +1778,10 @@ def phase_simulate_predict(workdir, causal, counters, device):
     seconds.update(pred_seconds)
     check(pred.n_snps_used == N_CAUSAL and pred.n_flipped == 0,
           f"predict used {pred.n_snps_used} SNPs, {pred.n_flipped} flipped")
-    data = read_plink(str(workdir / "cohort"))
+    data = read_plink(str(workdir / "cohort"), device=device)
     index = {s.name: i for i, s in enumerate(data.snps)}
     rows = [index[nm] for nm in sim.causal_effects]
-    observed = data.decode_chunk(0, N_SNPS)[rows] >= 0
+    observed = data.filter(keep_snps=[data.snps[i].name for i in rows]).dosages() >= 0
     effects = np.array(list(sim.causal_effects.values()))
     expect = sim.genetic_effects - effects @ observed
     err = float(np.max(np.abs(pred.scores - expect)) / np.max(np.abs(expect)))
@@ -1511,21 +1823,79 @@ def write_bgen_cohort(workdir, device):
     path = workdir / "cohort.bgen"
     write_bgen(str(path), data, bits=8, layout=2, compression="zlib")
     log(f"BGEN cohort: {path.stat().st_size / 1e6:.1f} MB for {m} variants x {n} samples")
+    # the layout-1 (v1.1) copy of a corner of it, for phase_bgen_l1
+    source = np.ascontiguousarray(dosage[:BGEN_L1_SNPS, :BGEN_L1_N])
+    np.save(workdir / "l1_source.npy", source)
+    write_bgen(str(workdir / "l1.bgen"), BgenData(
+        snps=data.snps[:BGEN_L1_SNPS], individuals=data.individuals[:BGEN_L1_N],
+        dosages=source), layout=1, compression="zlib")
     return ["--bgen", str(path)], {f"rs{i:06d}" for i in causal.cpu().numpy()}
 
 
-def time_bgen_host(path):
-    """Seconds of the two host steps inside the BGEN path's ComputeGRM and
-    LoadGenotypes, read_bgen (zlib + decode) and the dosage statistics,
-    timed apart once more."""
+def time_bgen_host(path, device):
+    """Seconds of the two steps inside the BGEN path's ComputeGRM and
+    LoadGenotypes, read_bgen (zlib on the host's threads, K6 on the card)
+    and the dosage statistics (on the card), timed apart once more."""
     from dissect_tpu_torch.io.bgen import read_bgen
 
     t0 = time.monotonic()
-    data = read_bgen(path)
+    data = read_bgen(path, device=device)
+    torch.cuda.synchronize()
     t1 = time.monotonic()
-    data.stats()
+    stats = data.stats()
     t2 = time.monotonic()
+    check_bgen_stats(data.dosages[:BGEN_BATCH].cpu().numpy(), stats, BGEN_BATCH)
     return {"bgen_host.read_bgen": t1 - t0, "bgen_host.stats": t2 - t1}
+
+
+def check_bgen_stats(dosages, stats, rows):
+    """BgenData.stats() on the card against the JAX package's numpy
+    expressions (dissect_tpu/io/bgen.py BgenData.stats) on the host, on
+    the first `rows` variants: bit for bit, since the card takes each sum
+    in numpy's order."""
+    observed = ~np.isnan(dosages)
+    n = observed.sum(axis=1)
+    mean = np.nansum(dosages, axis=1) / np.maximum(n, 1)
+    var = np.nansum(np.where(observed, (dosages - mean[:, None]) ** 2, 0.0),
+                    axis=1) / np.maximum(n - 1, 1)
+    p2 = mean / 2.0
+    want = {"n_nonmissing": n, "p1": 1.0 - p2, "p2": p2, "std": np.sqrt(var)}
+    same = {k: bool(np.array_equal(getattr(stats, k)[:rows], v)) for k, v in want.items()}
+    log(f"BGEN stats of {rows} variants on the card against numpy on the host, bit-exact: "
+        + json.dumps(same))
+    check(all(same.values()), "BGEN stats on the card differ from numpy's")
+
+
+def phase_bgen_l1(workdir, counters, device):
+    """`--make-grm --bgen` on the layout-1 (v1.1, zlib) copy of the BGEN
+    cohort's first BGEN_L1_SNPS variants and BGEN_L1_N individuals: K7
+    decodes it, K2 builds the GRM.  Checks: K7 launched once per batch and
+    K6 not at all; the GRM within BGEN_L1_GRM_ATOL of the GRM that K2
+    builds from the source dosages (layout 1 stores each probability
+    rounded to 1/32768)."""
+    from dissect_tpu_torch.io.bed import IndividualInfo
+    from dissect_tpu_torch.io.bgen import BgenData
+    from dissect_tpu_torch.io.grm_io import read_grm
+    from dissect_tpu_torch.model.kernels import grm_from_plink
+
+    _, launches, seconds, _ = _drive(
+        "bgen_l1", ["--make-grm", "--bgen", str(workdir / "l1.bgen"),
+                    "--out", str(workdir / "l1")], counters, device)
+    check(launches["bgen_decode_l1"] == -(-BGEN_L1_SNPS // BGEN_BATCH)
+          and launches["bgen_decode_l2"] == 0,
+          f"layout-1 step: K7 launched {launches['bgen_decode_l1']}, K6 "
+          f"{launches['bgen_decode_l2']} times")
+    source = np.load(workdir / "l1_source.npy")
+    ref = grm_from_plink(BgenData(
+        snps=_snp_infos(BGEN_SNPS)[:BGEN_L1_SNPS],
+        individuals=[IndividualInfo(f"S{i}", f"S{i}") for i in range(BGEN_L1_N)],
+        dosages=torch.as_tensor(source, device=device)), device=device)
+    err = float(np.max(np.abs(read_grm(str(workdir / "l1"))["kernel"]
+                              - ref.matrix.cpu().numpy())))
+    log(f"layout-1 BGEN ({BGEN_L1_SNPS} x {BGEN_L1_N}): GRM within {err:.2e} of the source "
+        f"dosages' (tol {BGEN_L1_GRM_ATOL:g})")
+    check(err <= BGEN_L1_GRM_ATOL, "the layout-1 GRM differs from the source dosages'")
+    return launches, seconds, {"grm_max_abs_diff": err}
 
 
 # -------------------------------------------------------------------- main --
@@ -1570,7 +1940,6 @@ def mesh_worker(plan_path):
         distributed_trtri,
         pick_interleave,
     )
-    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update, syrk_triangle_packed
     from dissect_tpu_torch.runtime.device import cli_device
     from dissect_tpu_torch.runtime.distributed import startup_runtime
     from dissect_tpu_torch.runtime.dtypes import configure_precision
@@ -1589,9 +1958,7 @@ def mesh_worker(plan_path):
     for op, val in got.items():
         record["collectives"][op] = {"device": str(val.device),
                                      "ok": val.cpu().tolist() == want[op]}
-    counters = {"grm_fused_triangle_update": grm_fused_triangle_update,
-                "syrk_triangle_packed": syrk_triangle_packed,
-                "fused_refit_moments": fused_refit_moments}
+    counters = kernel_counters()
     # the gwas step's refit inputs on this rank, for first_pass_reading
     import dissect_tpu_torch.analysis.dispatcher as dispatcher_module
 
@@ -1604,15 +1971,14 @@ def mesh_worker(plan_path):
 
     dispatcher_module.mlm_gwas_ml_refit = recording_refit
     for step in plan["steps"]:
-        for fn in counters.values():
-            fn.launches = 0
-        fused_refit_moments.launches_by_rows.clear()
+        zero_counters(counters)
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.monotonic()
         out = cli_main(step["argv"])
         rec = {"seconds": time.monotonic() - t0,
                "phases": dict(timers.elapsed),
                "launches": {name: fn.launches for name, fn in counters.items()},
+               "decode": decode_record(),
                "k3_by_rows": {str(k): v for k, v in fused_refit_moments.launches_by_rows.items()},
                "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9}
         if step["name"] == "reml":
@@ -1884,6 +2250,10 @@ def phase_mesh(workdir, reml_summary, counters, device):
             check(res["ok"] and res["device"].startswith("cuda"),
                   f"gloo {op} on CUDA tensors: {res}")
     steps_by_rank = [rec["steps"] for rec in ranks]
+    for rec in ranks:  # every mesh step reads --bfile: K4 and K5 on every rank
+        for name, st in rec["steps"].items():
+            check_decode(f"mesh_{name}_rank{rec['rank']}", ["--bfile"], st["launches"],
+                         st["decode"])
     for name, _ in steps:
         seconds[f"mesh_{name}"] = max(st[name]["seconds"] for st in steps_by_rank)
         for key, val in steps_by_rank[0][name]["phases"].items():
@@ -2011,17 +2381,13 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from dissect_tpu_torch.gwas.moments_kernels import fused_refit_moments
-    from dissect_tpu_torch.linalg.grm_kernels import grm_fused_triangle_update, syrk_triangle_packed
     from dissect_tpu_torch.runtime.dtypes import configure_precision
 
     os.environ.pop("DISSECT_TPU_TORCH_DEVICE", None)  # the CLI runs on the card
     configure_precision()
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    counters = {"grm_fused_triangle_update": grm_fused_triangle_update,
-                "syrk_triangle_packed": syrk_triangle_packed,
-                "fused_refit_moments": fused_refit_moments}
+    counters = kernel_counters()
     workdir = REPO / ".chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     plink_dir, bgen_dir = workdir / "plink", workdir / "bgen"
@@ -2100,8 +2466,12 @@ def main():
         peak_gb["bgen"] = torch.cuda.max_memory_allocated(device) / 1e9
         t0 = time.monotonic()
         _, summary["bgen"] = science_checks(bgen_dir, causal, BGEN_SNPS)
+        summary["bgen"]["blocks_parsed_on_host"] = {
+            tag: STEP_DECODE[tag]["bgen_unsupported"] for tag in ("bgen_make_grm", "bgen_gwas_grm")}
         seconds["bgen_checks"] = time.monotonic() - t0
-        seconds.update(time_bgen_host(bgen_args[1]))
+        seconds.update(time_bgen_host(bgen_args[1], device))
+        l1_launches, path_seconds, summary["bgen_l1"] = phase_bgen_l1(bgen_dir, counters, device)
+        seconds.update(path_seconds)
 
         t0 = time.monotonic()
         k3_by_rows = {"plink": plink_k3, "bgen": bgen_k3}
@@ -2124,7 +2494,11 @@ def main():
                    "mpresiduals": mp_launches[entry["name"]],
                    "igwas": igwas_launches[entry["name"]],
                    "glmm": glmm_launches[entry["name"]],
-                   "mesh": mesh_launches[entry["name"]]}
+                   "mesh": mesh_launches[entry["name"]],
+                   "bgen_l1": l1_launches[entry["name"]]}
+        # the steps whose phases return no launches: from their records
+        for tag in ("grouped_ols", "grouped_grm", "rgwas", "mpgwas", "simulate", "predict"):
+            by_path[tag] = STEP_LAUNCHES[tag][entry["name"]]
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
         if entry["name"] == "fused_refit_moments":

@@ -35,8 +35,8 @@ from dissect_tpu_torch.runtime.dtypes import GRM_DTYPE
 def bgen_data_from_state(snps: Sequence, individuals: Sequence, dosages) -> BgenData:
     """The port's BgenData from a JAX BgenData's fields: its SnpInfo and
     IndividualInfo records (any objects with those attribute names) and
-    its (M, N) dosages as a numpy array, kept as float32 with NaN =
-    missing."""
+    its (M, N) dosages as a numpy array, kept as a float32 tensor on the
+    CPU with NaN = missing."""
     snp_fields = [f.name for f in dataclasses.fields(SnpInfo)]
     ind_fields = [f.name for f in dataclasses.fields(IndividualInfo)]
     dosages = np.asarray(dosages, dtype=np.float32)

@@ -19,7 +19,7 @@ each bucket's joint solves run batched on the device, in float64.  One
 deliberate departure: the JAX package forms the whole M x N float64
 centred genotype matrix on the host and copies it again per bucket
 (dissect_tpu/analysis/dispatcher.py:830-831, grouped.py:116, :187).
-Here the raw dosages are uploaded once (`CenteredRows`), each batch of
+Here the raw dosages are decoded on the device once (`CenteredRows`), each batch of
 groups is centred on the device, rotated there into the covariance
 eigenbasis for the ML branch, and a bucket runs in batches of groups
 whose size bounds the device memory.  The numbers are the same.
@@ -70,14 +70,10 @@ class CenteredRows:
 
     @classmethod
     def from_data(cls, data, device) -> "CenteredRows":
-        """All of a PLINK or BGEN dataset's rows, decoded on the host in
-        chunks and uploaded in their raw dtype, with the SNP means."""
-        n_snps = data.n_snps
-        first = data.decode_chunk(0, min(n_snps, 1))
-        dosage = torch.empty((n_snps, data.n_individuals), dtype=torch.as_tensor(first).dtype,
-                             device=device)
-        for start, stop, chunk in data.iter_chunks(65536):
-            dosage[start:stop] = torch.as_tensor(chunk).to(device)
+        """All of a PLINK or BGEN dataset's rows in their raw dtype, decoded
+        on the data's device (`decode_rows`: K4 for PLINK data), with the
+        SNP means."""
+        dosage = data.decode_rows(0, data.n_snps).to(device)
         return cls(dosage, torch.as_tensor(data.stats().mean, device=device))
 
     @property

@@ -1,7 +1,6 @@
 """BGEN genotype loader (layouts 1 and 2, biallelic diploid).
 
-A copy of dissect_tpu/io/bgen.py without its native decoder: the port
-decodes with zlib and numpy.  Parity: genotypebgen.cpp — reads expected
+After dissect_tpu/io/bgen.py.  Parity: genotypebgen.cpp — reads expected
 allele-2 dosages from BGEN probability data, biallelic + diploid only
 (genotypebgen.cpp:106-122), computing per-variant mean/std and feeding
 the same genotype containers as the PLINK path.  Layout 1 (--bgen-l1,
@@ -10,26 +9,29 @@ blocks of zlib/zstd-compressed probabilities (layout 1: three uint16s
 per individual scaled by 32768; layout 2: bit-packed with per-sample
 ploidy).
 
-At biobank widths the reader and the writer work a batch of variants
-at a time: zlib runs on a thread pool (it releases the GIL), and the
-common block (layout 2, unphased, 8 bits) decodes a whole batch at once
-through a 65,536-entry table that holds the reference's float64
-arithmetic for every (P(11), P(12)) byte pair.  Every other block takes
-the reference's per-variant parser.  The bytes and the dosages are the
-reference's.
-
-Dosages are continuous, so the loader exposes them as float32 with NaN
-for missing (GenotypeAttributes::dosages analog).
+The reader works a batch of variants at a time: the host decompresses
+the blocks on a thread pool (zlib and zstd release the GIL), lays them
+end to end in one pinned buffer with their offsets and lengths, and
+uploads it; kernel K6 (layout 2) or K7 (layout 1) decodes the batch on
+the data's device (io/genotype_kernels.py), and the few blocks a kernel
+does not take are parsed on the host, as the JAX package's caller parses
+the rows its native decoder refuses.  Departure from the JAX package:
+its native decoder also decompresses, in C++; here the host's threads
+do: the port has no inflate kernel for the card.
+The dosages stay on the device as one float32 tensor, NaN = missing
+(GenotypeAttributes::dosages analog), so the GRM and the GWAS read them
+with no upload; they equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import struct
 import zlib
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 try:  # zstd-compressed BGEN (spec v1.3); gated — not all builds ship it
     import zstandard as _zstd
@@ -37,14 +39,22 @@ except ImportError:  # pragma: no cover
     _zstd = None
 
 import numpy as np
+import torch
 
 from dissect_tpu_torch.io.bed import IndividualInfo, SnpInfo, SnpStats
+from dissect_tpu_torch.io.genotype_kernels import bgen_decode_l1, bgen_decode_l2
+from dissect_tpu_torch.runtime.log import get_logger
+from dissect_tpu_torch.runtime.timers import timers
 
-# variants decoded or encoded per batch: bounds the host memory of the
-# decompressed bytes and the float temporaries
+# variants decompressed and decoded per batch: bounds the host memory of
+# the decompressed bytes
 _BATCH = 1024
-# rows per task of stats(): bounds its float64 temporaries
-_STATS_ROWS = 1024
+# rows per block of stats(): bounds its float64 temporaries
+_STATS_ROWS = 4096
+# numpy 2.0 sums the contiguous last axis of an array in pieces of this
+# many entries (its reduction buffer), pairwise within each piece; numpy
+# 2.3 sums a whole row pairwise (`_numpy_piece` probes which)
+_NUMPY_BUFFER = 8192
 
 
 def _threads() -> int:
@@ -53,10 +63,22 @@ def _threads() -> int:
 
 @dataclasses.dataclass
 class BgenData:
+    """BGEN variants and samples, with their dosages as one (M, N) float32
+    tensor, NaN = missing, on the device where they were decoded (a numpy
+    array given here is kept as a CPU tensor)."""
+
     snps: List[SnpInfo]
     individuals: List[IndividualInfo]
-    dosages: np.ndarray  # (M, N) float32, NaN = missing
+    dosages: Union[torch.Tensor, np.ndarray]  # (M, N) float32, NaN = missing
     _stats: Optional[SnpStats] = dataclasses.field(default=None, repr=False)
+
+    def __post_init__(self):
+        if not isinstance(self.dosages, torch.Tensor):
+            self.dosages = torch.from_numpy(np.ascontiguousarray(self.dosages, dtype=np.float32))
+
+    @property
+    def device(self) -> torch.device:
+        return self.dosages.device
 
     @property
     def n_snps(self) -> int:
@@ -80,21 +102,27 @@ class BgenData:
         (genotypebgen.cpp on-the-fly mean/std accumulation).  p2 is the
         mean dosage / 2; std is the EMPIRICAL dosage std (the reference
         uses sample std for imputed data, not sqrt(2p(1-p))).  Computed
-        in blocks of rows on a thread pool (each row's sums are the
-        reference's) and cached."""
+        on the data's device in blocks of rows, by the JAX package's
+        numpy expressions with each sum taken in numpy's order, so the
+        results are its own bit for bit; cached."""
         if self._stats is None:
-            blocks = [self.dosages[s:s + _STATS_ROWS]
-                      for s in range(0, max(self.n_snps, 1), _STATS_ROWS)]
-            with ThreadPoolExecutor(_threads()) as pool:
-                parts = list(pool.map(_dosage_stats, blocks))
-            n, mean, var = (np.concatenate(p) for p in zip(*parts))
+            parts = [_dosage_stats(self.dosages[s:s + _STATS_ROWS])
+                     for s in range(0, self.n_snps, _STATS_ROWS)]
+            if parts:
+                n, mean, var = (torch.cat(p).cpu().numpy() for p in zip(*parts))
+            else:
+                n, mean, var = np.zeros(0, np.int64), np.zeros(0), np.zeros(0)
             p2 = mean / 2.0
             self._stats = SnpStats(n_nonmissing=n, p1=1.0 - p2, p2=p2, std=np.sqrt(var))
         return self._stats
 
     # --- PlinkData-protocol compatibility ------------------------------------
-    def decode_chunk(self, start: int, stop: int) -> np.ndarray:
+    def decode_rows(self, start: int, stop: int) -> torch.Tensor:
+        """Rows [start, stop) on the data's device (a view)."""
         return self.dosages[start:stop]
+
+    def decode_chunk(self, start: int, stop: int) -> np.ndarray:
+        return self.dosages[start:stop].cpu().numpy()
 
     def iter_chunks(self, chunk_size: int):
         for start in range(0, self.n_snps, chunk_size):
@@ -102,36 +130,126 @@ class BgenData:
             yield start, stop, self.dosages[start:stop]
 
     def filter(self, keep_snps=None, keep_individuals=None) -> "BgenData":
-        snp_idx = np.arange(self.n_snps)
-        ind_idx = np.arange(self.n_individuals)
+        dosages = self.dosages
         snps, individuals = self.snps, self.individuals
         if keep_snps is not None:
             index = {s.name: i for i, s in enumerate(self.snps)}
             snp_idx = np.array([index[nm] for nm in keep_snps], dtype=np.int64)
             snps = [self.snps[i] for i in snp_idx]
+            dosages = dosages[torch.as_tensor(snp_idx, device=self.device)]
         if keep_individuals is not None:
             index = {ind.key: i for i, ind in enumerate(self.individuals)}
             ind_idx = np.array(
                 [index[k] for k in keep_individuals], dtype=np.int64
             )
             individuals = [self.individuals[i] for i in ind_idx]
-        return BgenData(
-            snps=snps,
-            individuals=individuals,
-            dosages=self.dosages[np.ix_(snp_idx, ind_idx)],
-        )
+            dosages = dosages[:, torch.as_tensor(ind_idx, device=self.device)]
+        return BgenData(snps=snps, individuals=individuals, dosages=dosages.contiguous())
 
 
-def _dosage_stats(dosages: np.ndarray):
+def _dosage_stats(dosages: torch.Tensor):
     """(non-missing count, mean, sample variance) of each row, NaN =
-    missing: the reference BgenData.stats() arithmetic."""
-    observed = ~np.isnan(dosages)
-    n = observed.sum(axis=1)
-    mean = np.nansum(dosages, axis=1) / np.maximum(n, 1)
-    var = np.nansum(
-        np.where(observed, (dosages - mean[:, None]) ** 2, 0.0), axis=1
-    ) / np.maximum(n - 1, 1)
+    missing, as the JAX package's BgenData.stats() computes them: the
+    float32 row sums and the float64 sums of squared deviations each in
+    numpy's summation order (`_numpy_row_sum`)."""
+    observed = ~torch.isnan(dosages)
+    n = observed.sum(dim=1)
+    total = _numpy_row_sum(torch.where(observed, dosages, 0.0))
+    mean = total.to(torch.float64) / n.clamp_min(1).to(torch.float64)
+    dev = dosages.to(torch.float64) - mean[:, None]
+    var = _numpy_row_sum(torch.where(observed, dev * dev, 0.0)) / (n - 1).clamp_min(1)
     return n, mean, var
+
+
+def _numpy_row_sum(x: torch.Tensor, piece_len: Optional[int] = None) -> torch.Tensor:
+    """Each row's sum, rounded as numpy rounds np.sum(x, axis=1) of a
+    C-contiguous array in x's dtype: 0 plus, in turn, the sums of the
+    row's pieces of `piece_len` entries (`_numpy_piece()` by default),
+    each by numpy's pairwise_sum (eight running sums over at most 128
+    entries, halves above)."""
+    piece_len = piece_len or _numpy_piece()
+    total = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    for s in range(0, x.shape[1], piece_len):
+        piece = x[:, s:s + piece_len]
+        tree = _pairwise_tree(0, piece.shape[1])
+        leaves = {}
+        for start, n in _tree_leaves(tree):
+            leaves.setdefault(n, []).append(start)
+        sums = {}
+        for n, starts in leaves.items():
+            block = _leaf_sums(piece, starts, n)
+            sums.update({(start, n): block[:, k] for k, start in enumerate(starts)})
+        total = total + _tree_sum(tree, sums)
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def _numpy_piece() -> int:
+    """How many entries of a row the installed numpy sums pairwise before
+    it adds the next piece: _NUMPY_BUFFER (numpy 2.0's reduction buffer)
+    or the whole row (numpy 2.3), found once by summing probe rows whose
+    two orders round apart.  Raises if numpy sums them in neither order:
+    the statistics would then not be the JAX package's bit for bit."""
+    probe = np.random.default_rng(0).uniform(0.0, 1.0, size=(16, _PROBE_LEN)).astype(np.float32)
+    want = probe.sum(axis=1)
+    for piece_len in (_NUMPY_BUFFER, _WHOLE_ROW):
+        if np.array_equal(_numpy_row_sum(torch.from_numpy(probe), piece_len).numpy(), want):
+            return piece_len
+    raise RuntimeError(
+        f"numpy {np.__version__} sums a row in an order BgenData.stats() does not know "
+        f"(neither pieces of {_NUMPY_BUFFER} entries nor the whole row)")
+
+
+_PROBE_LEN = 20_000
+_WHOLE_ROW = 1 << 62
+
+
+def _pairwise_tree(start: int, n: int):
+    """numpy's pairwise_sum recursion over entries [start, start + n): a
+    leaf (start, n) of at most 128 entries, or a pair of halves split at
+    a multiple of 8."""
+    if n <= 128:
+        return (start, n)
+    half = n // 2
+    half -= half % 8
+    return (_pairwise_tree(start, half), _pairwise_tree(start + half, n - half))
+
+
+def _tree_leaves(tree):
+    if isinstance(tree[0], int):
+        yield tree
+        return
+    for half in tree:
+        yield from _tree_leaves(half)
+
+
+def _tree_sum(tree, sums):
+    if isinstance(tree[0], int):
+        return sums[tree]
+    return _tree_sum(tree[0], sums) + _tree_sum(tree[1], sums)
+
+
+def _leaf_sums(x, starts, n):
+    """numpy's pairwise_sum of the n-entry leaves at `starts` of every row:
+    (rows, len(starts)).  Under 8 entries a running sum from 0; else eight
+    running sums over the multiples of 8, added in a fixed tree, then the
+    rest one by one."""
+    idx = torch.as_tensor(starts, device=x.device)[:, None] + torch.arange(n, device=x.device)
+    g = x[:, idx]  # (rows, leaves, n)
+    if n < 8:
+        res = torch.zeros(g.shape[:2], dtype=x.dtype, device=x.device)
+        for j in range(n):
+            res = res + g[..., j]
+        return res
+    r = g[..., :8]
+    whole = n - n % 8
+    for i in range(8, whole, 8):
+        r = r + g[..., i:i + 8]
+    res = ((r[..., 0] + r[..., 1]) + (r[..., 2] + r[..., 3])) + (
+        (r[..., 4] + r[..., 5]) + (r[..., 6] + r[..., 7]))
+    for i in range(whole, n):
+        res = res + g[..., i]
+    return res
 
 
 def _read_string(buf: memoryview, pos: int, len_bytes: int = 2) -> Tuple[str, int]:
@@ -145,7 +263,13 @@ def read_bgen(
     path: str,
     sample_path: Optional[str] = None,
     max_variants: Optional[int] = None,
+    device="cuda",
 ) -> BgenData:
+    """Read a BGEN file; its dosages are decoded on, and stay on, `device`.
+    `read_bgen.unsupported` counts the blocks K6/K7 did not take, which
+    were parsed on the host instead.  Timer phases: BgenInflate (the host's
+    decompression), BgenDecode (the batch's pinned buffer, its upload,
+    K6/K7 and the status read back)."""
     with open(path, "rb") as fh:
         raw = fh.read()
     buf = memoryview(raw)
@@ -221,26 +345,66 @@ def read_bgen(
             lens.append(geno_len)
         pos += geno_len
 
-    # --- pass 2: decompress on a thread pool, decode a batch at a time -----
+    # --- pass 2: decompress on a thread pool, decode a batch on the device --
+    device = torch.device(device)
     m = len(cand_snps)
-    dosages = np.zeros((m, n_samples), dtype=np.float32)
+    dosages = torch.empty((m, n_samples), dtype=torch.float32, device=device)
     decoded = np.zeros(m, dtype=bool)
+    unsupported = 0
     unpack = lambda i: _decompress(buf[offs[i] : offs[i] + lens[i]], compression, layout)
     with ThreadPoolExecutor(_threads()) as pool:
         for start in range(0, m, _BATCH):
-            datas = list(pool.map(unpack, range(start, min(start + _BATCH, m))))
-            if layout == 1:
-                rows = [_parse_layout1_dosage(d, n_samples) for d in datas]
-            else:
-                rows = _parse_layout2_batch(datas, n_samples)
-            for i, dosage in enumerate(rows, start):
-                if dosage is not None:
-                    dosages[i] = dosage
-                    decoded[i] = True
+            stop = min(start + _BATCH, m)
+            with timers.phase("BgenInflate"):
+                datas = list(pool.map(unpack, range(start, stop)))
+            with timers.phase("BgenDecode"):
+                rows, decoded[start:stop], n_host = _decode_blocks(
+                    datas, n_samples, layout, device)
+                dosages[start:stop] = rows
+            unsupported += n_host
+    read_bgen.unsupported += unsupported
+    if unsupported:
+        get_logger().message(
+            f"{path}: {unsupported} of {m} probability blocks parsed on the host "
+            f"(not taken by the layout-{layout} decoder on {device})")
 
     snps = [s for i, s in enumerate(cand_snps) if decoded[i]]
-    dosages = dosages[decoded] if m else np.zeros((0, n_samples), np.float32)
+    if not decoded.all():
+        dosages = dosages[torch.as_tensor(np.flatnonzero(decoded), device=device)]
     return BgenData(snps=snps, individuals=individuals, dosages=dosages)
+
+
+read_bgen.unsupported = 0
+
+
+def _decode_blocks(datas: List[bytes], n_samples: int, layout: int, device):
+    """A batch of uncompressed probability blocks -> ((k, N) float32
+    dosages on `device`, NaN = missing; (k,) bool, whether each block
+    decoded; how many went to the host parser).  The blocks go end to end
+    into one pinned buffer, which K6 (layout 2) or K7 (layout 1) decodes
+    after one upload; a block the kernel does not take (status 1) is
+    parsed on the host, and its row stays NaN if that parser refuses it
+    too (the JAX reader then drops the variant)."""
+    lengths = np.array([len(d) for d in datas], dtype=np.int64)
+    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+    host = torch.empty(int(lengths.sum()), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    view = host.numpy()
+    for data, off, ln in zip(datas, offsets, lengths):
+        view[off:off + ln] = np.frombuffer(data, dtype=np.uint8)
+    decode = bgen_decode_l1 if layout == 1 else bgen_decode_l2
+    rows, status = decode(host.to(device, non_blocking=True),
+                          torch.as_tensor(offsets).to(device, non_blocking=True),
+                          torch.as_tensor(lengths).to(device, non_blocking=True), n_samples)
+    status = status.cpu().numpy()
+    ok = status == 0
+    parse = _parse_layout1_dosage if layout == 1 else _parse_layout2_dosage
+    for i in np.flatnonzero(~ok):
+        row = parse(datas[i], n_samples)
+        if row is not None:
+            rows[i] = torch.as_tensor(row).to(device)
+            ok[i] = True
+    return rows, ok, int((status != 0).sum())
 
 
 def _decompress(geno_block: memoryview, compression: int, layout: int) -> bytes:
@@ -301,50 +465,6 @@ def _parse_layout2_dosage(data: bytes, n_samples: int) -> Optional[np.ndarray]:
     return dosage
 
 
-def _dosage_table_8bit() -> np.ndarray:
-    """float32 dosage of every unphased 8-bit (P(11), P(12)) byte pair,
-    index P(11) + 256 * P(12) (the pair read as a little-endian uint16),
-    by _parse_layout2_dosage's float64 steps."""
-    vals = np.arange(256, dtype=np.float64) / 255.0
-    p11, p12 = vals[None, :], vals[:, None]
-    p22 = np.clip(1.0 - p11 - p12, 0.0, 1.0)
-    return (p12 + 2.0 * p22).astype(np.float32).reshape(-1)
-
-
-_TABLE_8BIT = _dosage_table_8bit()
-
-
-def _parse_layout2_batch(datas: List[bytes], n_samples: int) -> List[Optional[np.ndarray]]:
-    """_parse_layout2_dosage over a batch of blocks.  The blocks that are
-    unphased, 8-bit, all-diploid and exactly 10 + 3N bytes decode together
-    through the byte-pair table; every other block goes to the
-    per-variant parser.  Dosages equal _parse_layout2_dosage's bit for
-    bit."""
-    width = 10 + 3 * n_samples
-    fast = [
-        len(d) == width
-        and d[8 + n_samples : 10 + n_samples] == b"\x00\x08"
-        and struct.unpack_from("<IH", d, 0) == (n_samples, 2)
-        for d in datas
-    ]
-    rows: List[Optional[np.ndarray]] = [
-        None if ok else _parse_layout2_dosage(d, n_samples) for d, ok in zip(datas, fast)
-    ]
-    idx = [i for i, ok in enumerate(fast) if ok]
-    if not idx:
-        return rows
-    block = np.frombuffer(b"".join(datas[i] for i in idx), dtype=np.uint8).reshape(len(idx), width)
-    ploidy = block[:, 8 : 8 + n_samples]
-    missing = (ploidy & 0x80) != 0
-    diploid = np.where(missing, True, (ploidy & 0x3F) == 2).all(axis=1)
-    dosage = _TABLE_8BIT[block[:, 10 + n_samples :].view("<u2")]
-    dosage[missing] = np.nan
-    for r, i in enumerate(idx):
-        if diploid[r]:
-            rows[i] = dosage[r]
-    return rows
-
-
 def write_bgen(
     path: str,
     data: BgenData,
@@ -398,7 +518,7 @@ def write_bgen(
     with ThreadPoolExecutor(_threads()) as pool:
         for start in range(0, data.n_snps, _BATCH):
             stop = min(start + _BATCH, data.n_snps)
-            payloads = _probability_payloads(data.dosages[start:stop], bits, layout)
+            payloads = _probability_payloads(data.decode_chunk(start, stop), bits, layout)
             genos = pool.map(genotype_block, payloads)
             for snp, geno in zip(data.snps[start:stop], genos):
                 chunks.append(_variant_header(snp, n, layout) + geno)

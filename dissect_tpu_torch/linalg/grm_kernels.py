@@ -17,7 +17,6 @@ its plain version only for tensors on the CPU.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -181,7 +180,7 @@ def grm_fused_triangle_update(
     _check("counts_tiles", counts_tiles, torch.float32, shape, device)
     if m == 0:
         return kernel_tiles, counts_tiles
-    kernel = _entry("grm_syrk", "grm_fused_triangle_update", 7, 6)
+    kernel = cuda_lib.entry("grm_syrk", "grm_fused_triangle_update", 7, 6)
     work = _work_on(device, n, block_n)
     stages = grm_stages(m)
     # the observed mask packed 32 rows to a word, one word per column
@@ -230,7 +229,7 @@ def syrk_triangle_packed(z, block_n: int = 512):
         raise ValueError(f"block_n {block_n} too large for the kernel's grid")
     shape = packed_shape(n, block_n)
     out = torch.empty(shape, dtype=torch.float32, device=z.device)
-    kernel = _entry("syrk_packed", "syrk_triangle_packed", 2, 4)
+    kernel = cuda_lib.entry("syrk_packed", "syrk_triangle_packed", 2, 4)
     with torch.cuda.device(z.device):
         rc = kernel(
             z.data_ptr(), out.data_ptr(), m, n, block_n, shape[0] // block_n,
@@ -248,12 +247,3 @@ syrk_triangle_packed.launches = 0
 def syrk_triangle(z, block_n: int = 512):
     """Full symmetric Z^T Z (float32) computing only lower-triangle tiles."""
     return unpack_triangle(syrk_triangle_packed(z, block_n), z.shape[1], block_n)
-
-
-def _entry(library: str, function: str, n_pointers: int, n_ints: int):
-    """The C entry point `function` of csrc/<library>.cu, typed: its
-    pointers, then its ints, then the stream; it returns the CUDA error."""
-    fn = getattr(cuda_lib.load(library), function)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-    return fn

@@ -4,7 +4,8 @@ Parity: Matrix::multiply(Z, 'T', Z, 'N') -> pdsyrk_ (matrix.cpp:2682),
 consumed by the GRM build kernel = Z^T Z, N = missings^T missings
 (kernel.cpp:92-109).  Port of dissect_tpu/linalg/syrk.py.
 
-Raw dosage chunks (M_chunk, N) stream to the device; the
+Raw dosage chunks (M_chunk, N), decoded on the device (K4 for PLINK
+hard calls; BGEN dosages are resident there), stream into it; the
 standardization (d - 2p)/sqrt(2p(1-p)), missing -> 0
 (genotype.cpp:888-970), fuses into the products for int8 hard calls
 (kernel K1) and runs before them for float imputed dosages (kernel K2).
@@ -71,7 +72,8 @@ class grm_accumulator:
     """Streaming GRM builder: feed (chunk, N) dosage blocks, finalize to
     the full (kernel, counts).
 
-    The host loop feeds decoded chunks; each `update` is one step into
+    The caller feeds decoded chunks (device tensors from `decode_rows`,
+    or host arrays, moved to `device`); each `update` is one step into
     the packed float32 tiles on `device` — int8 hard calls (-1 = missing)
     through K1, float imputed dosages (NaN = missing) through K2 — and
     `finalize` unpacks once (genotype.cpp:639-707, kernel.cpp:92-109)."""

@@ -307,6 +307,11 @@ def grm_from_plink(
     the card) or BGEN data (float imputed dosages, K2 on the card) via the
     streaming packed-triangle syrk.
 
+    Each chunk is decoded on the data's device (`decode_rows`: K4 for
+    PLINK data; BGEN dosages are resident there) and goes to the
+    accumulator with no host round trip; the SNP statistics come from
+    K5's counts (PLINK) or the resident dosages (BGEN).
+
     Parity: Kernel::Kernel(Genotype*) (kernel.cpp:61-125): kernel = Z^T Z
     over standardized genotypes, N = missings^T missings (or the
     constant SNP count under --grm-flat-normalization), then kernel/N.
@@ -332,8 +337,9 @@ def grm_from_plink(
     mean = stats.mean
     inv_std = 1.0 / stats.std
     acc = grm_accumulator(data.n_individuals, device=device)
-    for start, stop, chunk in data.iter_chunks(chunk_size):
-        acc.update(chunk, mean[start:stop], inv_std[start:stop])
+    for start in range(0, data.n_snps, chunk_size):
+        stop = min(start + chunk_size, data.n_snps)
+        acc.update(data.decode_rows(start, stop), mean[start:stop], inv_std[start:stop])
     raw, counts = acc.finalize()
     if flat_normalization:
         counts = torch.full_like(counts, float(data.n_snps))

@@ -13,7 +13,8 @@ as `.<name>.blup.snps` with columns SNP ALLELE BLUP STDEV MEAN NBLUP
 Port of dissect_tpu/reml/snp_blup.py with one departure, in memory only:
 the JAX version forms the whole M x N float64 dosage matrix and its
 standardized copy on the host (4 GB each at 50,000 SNPs x 10,000
-individuals).  Here SNP chunks of the raw dosages go to the device,
+individuals).  Here SNP chunks of the raw dosages are decoded on the
+device (K4 for PLINK data, from a filtered view that copies nothing),
 are standardized there in float64 as the GRM build standardizes them
 (`linalg.syrk.standardize_chunk`), and meet Py in one float64 product
 per chunk.  The numbers are the same.
@@ -61,9 +62,10 @@ def compute_snp_blup(
     mean = torch.as_tensor(stats.mean, dtype=torch.float64, device=device)
     inv_std = 1.0 / torch.as_tensor(stats.std, dtype=torch.float64, device=device)
     raw, n_nonmissing = [], []
-    for start, stop, dosage in sub.iter_chunks(chunk):
+    for start in range(0, sub.n_snps, chunk):
+        stop = min(start + chunk, sub.n_snps)
         z, observed = standardize_chunk(
-            torch.as_tensor(dosage).to(device), mean[start:stop], inv_std[start:stop],
+            sub.decode_rows(start, stop).to(device), mean[start:stop], inv_std[start:stop],
             torch.float64,
         )
         raw.append(z @ py)

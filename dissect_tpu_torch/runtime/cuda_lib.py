@@ -26,7 +26,7 @@ from typing import Dict, List
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("grm_syrk", "syrk_packed", "refit_moments")
+SOURCES = ("grm_syrk", "syrk_packed", "refit_moments", "bed_decode", "bgen_decode")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -95,6 +95,15 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LOADED[name] = lib
     return lib
+
+
+def entry(library: str, function: str, n_pointers: int, n_ints: int):
+    """The C entry point `function` of csrc/<library>.cu, typed: its
+    pointers, then its ints, then the stream; it returns the CUDA error."""
+    fn = getattr(load(library), function)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+    return fn
 
 
 def stream_handle(device) -> int:

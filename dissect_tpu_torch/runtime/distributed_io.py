@@ -92,12 +92,14 @@ def gather_snp_fields(res, m: int, ctx: MeshContext):
     return res
 
 
-def decode_snp_shard(data, start: int, stop: int, ctx: MeshContext) -> np.ndarray:
+def decode_snp_shard(data, start: int, stop: int, ctx: MeshContext) -> torch.Tensor:
     """This rank's padded rows of the chunk [start, stop) of `data`,
-    decoded from the genotype file alone."""
+    decoded from the genotype file alone, on the data's device (K4 on the
+    rank's card for PLINK data)."""
     idx = start + snp_row_index(stop - start, ctx)
     lo, hi = int(idx[0]), int(idx[-1]) + 1
-    return data.decode_chunk(lo, hi)[idx - lo]
+    rows = data.decode_rows(lo, hi)
+    return rows[torch.as_tensor(idx - lo, device=rows.device)]
 
 
 def stream_grm_sharded(
@@ -123,16 +125,15 @@ def stream_grm_sharded(
     counts = torch.zeros_like(kernel)
     per = max(chunk_size // ctx.world, 1)
     g = per * ctx.world
-    dtype = data.decode_chunk(0, 1).dtype  # int8 hard calls or float dosages
-    fill = np.nan if dtype.kind == "f" else -1
     for start in range(0, m, g):
         s = min(start + ctx.rank * per, m)
         e = min(s + per, m)
-        block = data.decode_chunk(s, e) if e > s else None
-        rows = np.full((per, n), fill, dtype=dtype)
-        if block is not None:
-            rows[: e - s] = block
-        dosage = ctx.all_gather(torch.as_tensor(rows, device=device))
+        block = data.decode_rows(s, e).to(device)  # int8 hard calls or float dosages
+        rows = torch.full((per, n), -1, dtype=block.dtype, device=device)
+        if block.is_floating_point():
+            rows.fill_(float("nan"))
+        rows[: e - s] = block
+        dosage = ctx.all_gather(rows)
         stop = min(start + g, m)
         mu, istd = np.zeros(g), np.ones(g)  # the padding rows are all missing
         mu[: stop - start], istd[: stop - start] = mean[start:stop], inv_std[start:stop]

@@ -65,16 +65,17 @@ def port_bgen_data(jd):
 def assert_same_data(ours, theirs):
     assert [vars(s) for s in ours.snps] == [vars(s) for s in theirs.snps]
     assert [vars(i) for i in ours.individuals] == [vars(i) for i in theirs.individuals]
-    assert ours.dosages.dtype == theirs.dosages.dtype == np.float32
-    np.testing.assert_array_equal(ours.dosages, theirs.dosages)
+    got = ours.dosages.cpu().numpy()
+    assert got.dtype == theirs.dosages.dtype == np.float32
+    np.testing.assert_array_equal(got, theirs.dosages)
 
 
 # --------------------------------------------------------------- reader ---
 def test_read_golden_bgen_matches_jax():
-    ours = bgen.read_bgen(str(GOLDEN / "cohort.bgen"))
+    ours = bgen.read_bgen(str(GOLDEN / "cohort.bgen"), device="cpu")
     theirs = jax_bgen.read_bgen(str(GOLDEN / "cohort.bgen"), native=False)
     assert_same_data(ours, theirs)
-    assert np.isnan(ours.dosages).any()
+    assert np.isnan(ours.dosages.numpy()).any()
 
 
 FORMATS = [(1, 16, "none"), (1, 16, "zlib")] + [
@@ -94,25 +95,27 @@ def test_write_and_read_match_jax(tmp_path, rng, layout, bits, compression):
     bgen.write_bgen(str(ours_path), port_bgen_data(jd), bits=bits, layout=layout,
                     compression=compression)
     assert ours_path.read_bytes() == theirs_path.read_bytes()
-    assert_same_data(bgen.read_bgen(str(theirs_path)),
+    assert_same_data(bgen.read_bgen(str(theirs_path), device="cpu"),
                      jax_bgen.read_bgen(str(theirs_path), native=False))
 
 
 def test_batched_reader_spans_batches(tmp_path, rng, monkeypatch):
-    """More variants than one decode batch, so the 8-bit table path runs
-    over several batches."""
+    """More variants than one decode batch, so the batch decoder (K6's
+    plain version here) runs over several batches."""
     monkeypatch.setattr(bgen, "_BATCH", 16)
     jd = jax_bgen_data(imputed(rng, 50, 21))
     path = tmp_path / "b.bgen"
     jax_bgen.write_bgen(str(path), jd, bits=8)
-    assert_same_data(bgen.read_bgen(str(path)), jax_bgen.read_bgen(str(path), native=False))
-    assert_same_data(bgen.read_bgen(str(path), max_variants=20),
+    assert_same_data(bgen.read_bgen(str(path), device="cpu"),
+                     jax_bgen.read_bgen(str(path), native=False))
+    assert_same_data(bgen.read_bgen(str(path), max_variants=20, device="cpu"),
                      jax_bgen.read_bgen(str(path), max_variants=20, native=False))
 
 
 def test_batch_decoder_matches_per_variant_parser(rng):
-    """A batch mixing table-path blocks with ones the per-variant parser
-    must take (a haploid sample, which both readers drop; a 16-bit block)."""
+    """A batch mixing blocks the batch decoder takes (8- and 16-bit) with
+    one the per-variant parser must take (a haploid sample, which both
+    readers drop)."""
     n = 30
     d = imputed(rng, 4, n)
     blocks = bgen._probability_payloads(d, 8, 2)
@@ -120,25 +123,27 @@ def test_batch_decoder_matches_per_variant_parser(rng):
     haploid[8 + 3] = 1  # sample 3 ploidy 1
     blocks[1] = bytes(haploid)
     blocks.append(bgen._probability_payloads(d[:1], 16, 2)[0])
-    got = bgen._parse_layout2_batch(blocks, n)
-    for data, row in zip(blocks, got):
+    rows, ok, _ = bgen._decode_blocks(blocks, n, 2, torch.device("cpu"))
+    for data, row, took in zip(blocks, rows.numpy(), ok):
         want = jax_bgen._parse_layout2_dosage(data, n)
         if want is None:
-            assert row is None
+            assert not took
         else:
             np.testing.assert_array_equal(row, want)
-    assert got[1] is None and got[0] is not None and got[-1] is not None
+    assert not ok[1] and ok[0] and ok[-1]
 
 
 @pytest.mark.parametrize("half", [0, 1])
 def test_dosage_table_holds_every_byte_pair(half):
-    """The 8-bit table against JAX's per-variant parser on one block whose
-    32,768 samples carry half of all 65,536 (P(11), P(12)) byte pairs."""
+    """The batch decoder (K6's plain version) against JAX's per-variant
+    parser on one block whose 32,768 samples carry half of all 65,536
+    (P(11), P(12)) byte pairs."""
     n = 32768
     pairs = np.arange(half * n, (half + 1) * n, dtype="<u2")
     block = struct.pack("<IHBB", n, 2, 2, 2) + bytes([2]) * n + bytes([0, 8]) + pairs.tobytes()
-    np.testing.assert_array_equal(bgen._parse_layout2_batch([block], n)[0],
-                                  jax_bgen._parse_layout2_dosage(block, n))
+    rows, ok, _ = bgen._decode_blocks([block], n, 2, torch.device("cpu"))
+    assert ok[0]
+    np.testing.assert_array_equal(rows[0].numpy(), jax_bgen._parse_layout2_dosage(block, n))
 
 
 def test_stats_filter_and_chunks_match_jax(rng, monkeypatch):
@@ -254,8 +259,8 @@ def test_grm_update_packed_adds_in_place(float_chunk):
 def test_grm_from_bgen_matches_jax(chunk_size):
     """grm_from_plink(read_bgen(golden)) against JAX's: kernel at rtol
     1e-6, counts exactly, same ids and SNPs."""
-    ours = grm_from_plink(bgen.read_bgen(str(GOLDEN / "cohort.bgen")), chunk_size=chunk_size,
-                          device="cpu")
+    ours = grm_from_plink(bgen.read_bgen(str(GOLDEN / "cohort.bgen"), device="cpu"),
+                          chunk_size=chunk_size, device="cpu")
     ref = jax_grm_from_plink(jax_bgen.read_bgen(str(GOLDEN / "cohort.bgen"), native=False),
                              chunk_size=chunk_size)
     assert ours.individual_keys == ref.individual_keys

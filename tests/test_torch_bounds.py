@@ -47,6 +47,36 @@ def test_k3_bound_at_the_igwas_shape():
     assert ms == pytest.approx(0.63, abs=0.005)
 
 
+def test_k4_bound_is_the_chunk_bytes():
+    """K4 on one 2,048-SNP chunk at N = 10,000: 5.1 MB of packed rows in,
+    20.5 MB of int8 dosages out, 7.6 us at 3.35 TB/s."""
+    ms, by = cs.k4_bound(M_CHUNK, N)
+    assert by == "bytes"
+    assert ms == pytest.approx((M_CHUNK * N // 4 + M_CHUNK * N) / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0076, abs=0.0001)
+    with_index, _ = cs.k4_bound(M_CHUNK, N, n_out=9_000)
+    assert with_index == pytest.approx((M_CHUNK * N // 4 + M_CHUNK * 9_000 + 4 * 9_000)
+                                       / 3.35e12 * 1e3)
+
+
+def test_k5_bound_over_the_file_is_its_packed_bytes():
+    """K5 reads the 125 MB payload of 50,000 SNPs once (and writes 1.6 MB
+    of counts): 37.8 us; one 8,192-row block 6.2 us."""
+    ms, by = cs.k5_bound(M_SNPS, N)
+    assert by == "bytes"
+    assert ms == pytest.approx(0.0378, abs=0.0001)
+    assert cs.k5_bound(8192, N)[0] == pytest.approx(0.0062, abs=0.0001)
+
+
+def test_k6_bound_is_the_batch_bytes():
+    """K6 on the BGEN path's batch: 1,024 blocks of 10 + 3N bytes in and
+    1,024 x N float32 out, about 72 MB, 21 us."""
+    v = 1024
+    ms, by = cs.bgen_bound(v * (10 + 3 * N), v, N)
+    assert by == "bytes"
+    assert ms == pytest.approx(0.0214, abs=0.0001)
+
+
 @pytest.mark.parametrize(
     "n_bytes, fp32, int8, want",
     [

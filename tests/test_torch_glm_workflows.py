@@ -126,7 +126,7 @@ def fileset(tmp_path_factory):
     rng = np.random.default_rng(99)
     dosage = make_dosage(rng, 60, 80, missing_rate=0.02)
     bfile, _ = make_plink(tmp, dosage)
-    return tmp, bfile, read_plink(bfile), jax_read_plink(bfile)
+    return tmp, bfile, read_plink(bfile, device="cpu"), jax_read_plink(bfile)
 
 
 @pytest.mark.parametrize("binary", [False, True])
@@ -261,7 +261,7 @@ def test_hetvector_alignment(tmp_path):
     rng = np.random.default_rng(12345)
     dosage = make_dosage(rng, 10, 6)
     prefix, _ = make_plink(tmp_path, dosage)
-    data = read_plink(prefix)
+    data = read_plink(prefix, device="cpu")
     qc = tmp_path / "q.txt"
     with open(qc, "w") as fh:
         for i, ind in enumerate(data.individuals):

@@ -158,7 +158,7 @@ def test_grm_from_plink_matches_jax(tmp_path, rng, chunk_size):
     rtol 1e-6 (the golden .grm.dat tolerance), counts exactly."""
     d = make_dosage(rng, 100, 60, missing_rate=0.03)
     prefix, _ = make_plink(tmp_path, d)
-    ours = grm_from_plink(read_plink(prefix), chunk_size=chunk_size, device="cpu")
+    ours = grm_from_plink(read_plink(prefix, device="cpu"), chunk_size=chunk_size, device="cpu")
     ref = jax_grm_from_plink(jax_read_plink(prefix), chunk_size=chunk_size)
     assert ours.individual_keys == ref.individual_keys
     assert ours.snp_names == ref.snp_names
@@ -172,8 +172,8 @@ def test_grm_from_plink_rejects_monomorphic(tmp_path, rng):
     d[3] = 0
     prefix, _ = make_plink(tmp_path, d)
     with pytest.raises(ValueError, match="monomorphic"):
-        grm_from_plink(read_plink(prefix), device="cpu")
-    kept = grm_from_plink(read_plink(prefix), drop_monomorphic=True, device="cpu")
+        grm_from_plink(read_plink(prefix, device="cpu"), device="cpu")
+    kept = grm_from_plink(read_plink(prefix, device="cpu"), drop_monomorphic=True, device="cpu")
     assert "snp3" not in kept.snp_names and len(kept.snp_names) == 19
 
 

@@ -47,12 +47,14 @@ def _data(dosage, chrom=lambda i: "1", pos=lambda i: 1000 * i):
     """The same fileset as the port's and the JAX package's PlinkData."""
     m, n = dosage.shape
     out = []
-    for snp_cls, ind_cls, data_cls in ((SnpInfo, IndividualInfo, PlinkData),
-                                       (JaxSnpInfo, JaxIndividualInfo, JaxPlinkData)):
+    for snp_cls, ind_cls, data_cls, where in (
+            (SnpInfo, IndividualInfo, PlinkData, {"device": "cpu"}),
+            (JaxSnpInfo, JaxIndividualInfo, JaxPlinkData, {})):
         out.append(data_cls(
             snps=[snp_cls(chrom(i), f"snp{i}", 0.0, pos(i), "A", "C") for i in range(m)],
             individuals=[ind_cls(f"F{i}", f"I{i}") for i in range(n)],
             _dosage=dosage.copy(),
+            **where,
         ))
     return out
 

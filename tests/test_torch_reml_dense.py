@@ -367,7 +367,7 @@ def test_snp_blup_streamed_in_chunks_matches_jax_whole_matrix(tmp_path):
     keys = [f"F{i}@I{i}" for i in range(0, 50, 2)][::-1]
     snps = [f"snp{i}" for i in (31, 2, 17, 5, 8, 39, 0, 22, 11, 30, 3)]
     py = rng.normal(size=len(keys))
-    ours = compute_snp_blup(read_plink(prefix), keys, torch.as_tensor(py), 0.37,
+    ours = compute_snp_blup(read_plink(prefix, device="cpu"), keys, torch.as_tensor(py), 0.37,
                             grm_snp_names=snps, chunk=7)
     theirs = jax_compute_snp_blup(jax_read_plink(prefix), keys, py, 0.37, grm_snp_names=snps)
     assert ours["snp_names"] == theirs["snp_names"] and ours["alleles"] == theirs["alleles"]

@@ -9,15 +9,21 @@ Phases, each of which stops the script on failure:
   2. kernels   hold each kernel (K1, K2, K3; the genotype decoders K4
                bed_decode, K5 bed_counts, K6 bgen_decode_l2, K7
                bgen_decode_l1) against its plain PyTorch version on the card,
-               at ragged shapes and at the shape the main paths give it (K4-K7
-               bit-exact, NaN positions equal: N % 4 in {1, 2, 3}, an
-               individual index that drops and reorders, all-missing rows,
-               1-, 3-, 8-, 12- and 16-bit and phased BGEN blocks and one K6
-               must refuse), and time kernel, plain version and (where one
-               exists) the single PyTorch call that computes the same
-               function (for K4 the lookup gather lut[rows.long()]), with
-               each kernel's bound (bytes at the memory rate, float32 flops
-               and int8 tensor-core operations each at its pipe's rate);
+               at ragged shapes and at the shapes the main paths give it
+               (K4-K7 bit-exact, NaN positions equal: N % 4 in {1, 2, 3},
+               odd, 4- and 8-byte row strides, an individual index that
+               drops and reorders or repeats, `packed`, the index and out=
+               views that start inside their buffers, 0 and 1 rows, rows
+               past K4's staging limit, all-missing rows, 1-, 3-, 8-, 12-
+               and 16-bit and phased BGEN blocks and one K6 must refuse),
+               and time kernel, plain version and (where one exists) the
+               single PyTorch call that computes the same function (for K4
+               the lookup gather lut[rows.long()]), with each kernel's
+               bound (bytes at the memory rate, float32 flops and int8
+               tensor-core operations each at its pipe's rate); K4 at a
+               2,048-SNP chunk with and without a 9,000-entry index and at
+               an 8,192-row block, K5 at an 8,192-row block with and
+               without it;
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
                and BGEN input, dense `--reml --blue --snp-blup`, `--pca`,
                `--bivar-reml`, regional `--reml`, grouped `--gwas`,
@@ -524,19 +530,28 @@ def bgen_bound(n_bytes, n_variants, n_samples):
     return bound_ms(n_bytes + 16 * n_variants + 4 * n_variants * n_samples + 4 * n_variants, 0)
 
 
-def _packed_on_card(gen, m, n, device):
+def _packed_on_card(gen, m, n, device, row_offset=0):
     """(m, ceil(n/4)) random .bed rows, the last byte's unused codes
-    random too, and row 1 all missing."""
-    rows = torch.randint(0, 256, (m, (n + 3) // 4), generator=gen, device=device,
+    random too, and row 1 all missing; with row_offset, a view that starts
+    that many rows into its buffer."""
+    rows = torch.randint(0, 256, (m + row_offset, (n + 3) // 4), generator=gen, device=device,
                          dtype=torch.uint8)
-    rows[min(1, m - 1)] = 0b01010101
-    return rows
+    if m > 1:
+        rows[row_offset + 1] = 0b01010101
+    return rows[row_offset:]
 
 
-def _cols_on_card(gen, n, device):
-    """An individual index that drops a tenth of n and reorders the rest."""
+def _cols_on_card(gen, n, device, repeat=False, offset=0):
+    """An individual index that drops a tenth of n and reorders the rest;
+    with repeat, its last entry names its first individual again; with
+    offset, a view that starts that many entries into its buffer."""
     perm = torch.randperm(n, generator=gen, device=device)
-    return perm[: n - n // 10].to(torch.int32).contiguous()
+    keep = n - n // 10
+    cols = torch.empty((offset + keep,), dtype=torch.int32, device=device)[offset:]
+    cols.copy_(perm[:keep])
+    if repeat:
+        cols[-1] = cols[0]
+    return cols
 
 
 def _same_bits(a, b):
@@ -554,31 +569,59 @@ def _max_abs_diff(a, b):
     return float((a - b).abs()[both].max()) if bool(both.any()) else 0.0
 
 
-def compare_k4(gen, m, n, device, with_cols, timed):
+def _decode_case(m, n, with_cols, row_offset, repeat, out_shift=None):
+    tags = [f"m={m}", f"n={n}", "cols=" + ("repeating" if repeat else
+                                           "dropped and reordered" if with_cols else "all")]
+    if row_offset:
+        tags.append(f"packed {row_offset} row into its buffer")
+        if with_cols:
+            tags.append("cols 1 entry into its buffer")
+    if out_shift:
+        tags.append(f"out 1 {out_shift} into its buffer")
+    return " ".join(tags)
+
+
+def _timed_entry(entry, keys=("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                              "max_abs_err", "shape")):
+    return {key: entry[key] for key in keys}
+
+
+def compare_k4(gen, m, n, device, with_cols, timed=False, row_offset=0, out_shift=None,
+               repeat=False):
     """K4 against its plain version (the lookup table as a torch gather),
-    with an individual index that drops and reorders or without one; the
-    one-call lookup gather lut[rows.long()] timed as its library call."""
+    with an individual index that drops and reorders (or repeats) or
+    without one; `packed` may start `row_offset` rows into its buffer (and
+    the index as many entries into its own), and out= one row or one byte
+    (`out_shift`) into its own, whose bytes before it must stay untouched.
+    Timed: the kernel into a given out= (as io/bed.py calls it), the plain
+    version, and the one-call lookup gather lut[rows.long()] (which decodes
+    all individuals: no one call gathers through the index) as its
+    library call."""
     from dissect_tpu_torch.io import genotype_kernels as gk
 
-    packed = _packed_on_card(gen, m, n, device)
-    cols = _cols_on_card(gen, n, device) if with_cols else None
-    out = gk.bed_decode(packed, n, cols)
+    packed = _packed_on_card(gen, m, n, device, row_offset)
+    cols = (_cols_on_card(gen, n, device, repeat, offset=row_offset)
+            if with_cols or repeat else None)
+    n_out = n if cols is None else cols.shape[0]
+    skip = {None: 0, "row": n_out, "byte": 1}[out_shift]
+    buf = torch.full((skip + m * n_out,), 77, dtype=torch.int8, device=device)
+    dst = buf[skip:].view(m, n_out)
+    out = gk.bed_decode(packed, n, cols, out=dst)
     ref = gk.plain_bed_decode(packed, n, cols)
     torch.cuda.synchronize()
-    equal = bool(torch.equal(out, ref))
+    equal = out is dst and bool(torch.equal(out, ref)) and bool((buf[:skip] == 77).all())
     err = _max_abs_diff(out, ref)
-    log(f"K4 m={m} n={n} cols={'dropped and reordered' if with_cols else 'all'}: "
+    log(f"K4 {_decode_case(m, n, with_cols, row_offset, repeat, out_shift)}: "
         f"bit-exact {equal}, max abs err {err}")
     check(equal, "K4 disagrees with its plain version")
     if not timed:
         return None
     lut = gk._byte_lut(device)
-    n_out = n if cols is None else cols.shape[0]
     b_ms, b_by = k4_bound(m, n, None if cols is None else n_out)
     return {
         "name": "bed_decode", "route": "cuda", "source": "dissect_tpu_torch/csrc/bed_decode.cu",
         "replaces": "dissect_tpu/native/bed_decode.cpp:36", "max_abs_err": err,
-        "ms": time_ms(lambda: gk.bed_decode(packed, n, cols), iters=50, held=True),
+        "ms": time_ms(lambda: gk.bed_decode(packed, n, cols, out=dst), iters=50, held=True),
         "plain_ms": time_ms(lambda: gk.plain_bed_decode(packed, n, cols), iters=5),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": time_ms(lambda: lut[packed.long()], iters=5),
@@ -586,20 +629,23 @@ def compare_k4(gen, m, n, device, with_cols, timed):
     }
 
 
-def compare_k5(gen, m, n, device, with_cols, timed):
+def compare_k5(gen, m, n, device, with_cols, timed=False, row_offset=0, repeat=False):
     """K5's counts against its plain version (a reduction over the plain
-    decode), over all individuals or a dropped and reordered index."""
+    decode), over all individuals, a dropped and reordered index or one
+    that repeats an individual (the gather route); `packed` may start
+    `row_offset` rows into its buffer, and the index as many entries."""
     from dissect_tpu_torch.io import genotype_kernels as gk
 
-    packed = _packed_on_card(gen, m, n, device)
-    cols = _cols_on_card(gen, n, device) if with_cols else None
+    packed = _packed_on_card(gen, m, n, device, row_offset)
+    cols = (_cols_on_card(gen, n, device, repeat, offset=row_offset)
+            if with_cols or repeat else None)
     out = gk.bed_counts(packed, n, cols)
     ref = gk.plain_bed_counts(packed, n, cols)
     torch.cuda.synchronize()
     n_out = n if cols is None else cols.shape[0]
     equal = bool(torch.equal(out, ref)) and bool((out.sum(1) == n_out).all())
     err = _max_abs_diff(out, ref)
-    log(f"K5 m={m} n={n} cols={'dropped and reordered' if with_cols else 'all'}: "
+    log(f"K5 {_decode_case(m, n, with_cols, row_offset, repeat)}: "
         f"bit-exact {equal}, max abs err {err}")
     check(equal, "K5 disagrees with its plain version")
     if not timed:
@@ -611,7 +657,7 @@ def compare_k5(gen, m, n, device, with_cols, timed):
         "ms": time_ms(lambda: gk.bed_counts(packed, n, cols), iters=50, held=True),
         "plain_ms": time_ms(lambda: gk.plain_bed_counts(packed, n, cols), iters=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"m": m, "n": n, "n_bytes": packed.shape[1]},
+        "shape": {"m": m, "n": n, "n_bytes": packed.shape[1], "n_out": n_out},
     }
 
 
@@ -728,16 +774,49 @@ def phase_kernels(device):
     k3["igwas_shape"] = {key: k3_igwas[key] for key in (
         "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
         "trace_rel_err", "shape")}
-    # K4, K5: N % 4 in {1, 2, 3}, an index that drops and reorders, an
-    # all-missing row (row 1 of each), then the main paths' shapes: a
-    # 2,048-SNP chunk and an 8,192-row stats block, all individuals
-    for n in (1001, 1002, 1003):
+    # K4, K5 bit-exact: N % 4 in {1, 2, 3}; row strides of 251, 252, 253
+    # and 280 bytes (N = 1,004, 1,008, 1,012, 1,120: odd, 4-byte and
+    # 8-byte aligned rows; 1,120's index of 1,008 gives 16-byte output
+    # rows); each with and without an index that drops and reorders, and
+    # with one that repeats an individual (K5's gather route), an
+    # all-missing row (row 1 of each); `packed` one row into its buffer
+    # (the index one entry into its own: 4-byte, not 16-byte aligned), out=
+    # one row and one byte into its own; one row and none; rows over
+    # the staging limit (N = 400,004: K4's gather from global memory)
+    for n in (1001, 1002, 1003, 1004, 1008, 1012, 1120):
         for with_cols in (False, True):
-            compare_k4(gen, 333, n, device, with_cols, timed=False)
-            compare_k5(gen, 333, n, device, with_cols, timed=False)
+            compare_k4(gen, 333, n, device, with_cols)
+            compare_k5(gen, 333, n, device, with_cols)
+        compare_k4(gen, 333, n, device, True, repeat=True)
+        compare_k5(gen, 333, n, device, True, repeat=True)
+    for n in (1004, 1008, 1012):
+        for with_cols in (False, True):
+            compare_k4(gen, 333, n, device, with_cols, row_offset=1)
+            compare_k5(gen, 333, n, device, with_cols, row_offset=1)
+            for out_shift in ("row", "byte"):
+                compare_k4(gen, 333, n, device, with_cols, row_offset=1, out_shift=out_shift)
+    for m in (1, 0):
+        for with_cols in (False, True):
+            compare_k4(gen, m, N_INDIVIDUALS, device, with_cols)
+            compare_k5(gen, m, N_INDIVIDUALS, device, with_cols)
+    for with_cols in (False, True):
+        compare_k4(gen, 3, 400_004, device, with_cols, row_offset=1)
+        compare_k5(gen, 3, 400_004, device, with_cols, row_offset=1)
+    # timed at the main paths' shapes: K4 on a 2,048-SNP GRM chunk, all
+    # individuals (the GRM path) and through a 9,000-entry index (a
+    # filtered PlinkData), and on an 8,192-row block (a whole-file decode);
+    # K5 on an 8,192-row block, without and with the index, and with an
+    # index that repeats one individual (the gather route)
     k4 = compare_k4(gen, GRM_CHUNK, N_INDIVIDUALS, device, False, timed=True)
-    compare_k4(gen, GRM_CHUNK, N_INDIVIDUALS, device, True, timed=False)
+    k4["index_shape"] = _timed_entry(
+        compare_k4(gen, GRM_CHUNK, N_INDIVIDUALS, device, True, timed=True))
+    k4["block_shape"] = _timed_entry(
+        compare_k4(gen, BLOCK_ROWS, N_INDIVIDUALS, device, False, timed=True))
     k5 = compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, False, timed=True)
+    k5["index_shape"] = _timed_entry(
+        compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, True, timed=True))
+    k5["repeated_index"] = _timed_entry(
+        compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, True, timed=True, repeat=True))
     # K6, K7: every bit width, phased, missing samples, a refused block;
     # then the BGEN path's batch (1,024 8-bit unphased blocks) and a
     # layout-1 batch of the same size
@@ -1042,6 +1121,7 @@ STEP_LAUNCHES = {}
 STEP_DECODE = {}
 PLAIN_DECODERS = ("plain_bed_decode", "plain_bed_counts", "plain_bgen_decode_l2",
                   "plain_bgen_decode_l1")
+ROW_COUNTED_DECODERS = ("bed_decode", "bed_counts")  # K4, K5: launches by row count
 
 
 def kernel_counters():
@@ -1058,27 +1138,33 @@ def kernel_counters():
 
 
 def zero_counters(counters):
-    """Every launch counter, K3's by row count, the decoders' plain calls
-    on the card and the BGEN reader's host-parsed blocks to 0."""
+    """Every launch counter, K3's, K4's and K5's by row count, the
+    decoders' plain calls on the card and the BGEN reader's host-parsed
+    blocks to 0."""
     from dissect_tpu_torch.io import genotype_kernels as gk
     from dissect_tpu_torch.io.bgen import read_bgen
 
     for fn in counters.values():
         fn.launches = 0
-    counters["fused_refit_moments"].launches_by_rows.clear()
+    for name in ("fused_refit_moments",) + ROW_COUNTED_DECODERS:
+        counters[name].launches_by_rows.clear()
     for name in PLAIN_DECODERS:
         getattr(gk, name).card_calls = 0
     read_bgen.unsupported = 0
 
 
 def decode_record():
-    """The decoders' plain calls on the card and the BGEN blocks parsed on
-    the host since `zero_counters`."""
+    """The decoders' plain calls on the card, the BGEN blocks parsed on
+    the host, and K4's and K5's launches by row count since
+    `zero_counters`."""
     from dissect_tpu_torch.io import genotype_kernels as gk
     from dissect_tpu_torch.io.bgen import read_bgen
 
     return {"plain_card_calls": {name: getattr(gk, name).card_calls for name in PLAIN_DECODERS},
-            "bgen_unsupported": read_bgen.unsupported}
+            "bgen_unsupported": read_bgen.unsupported,
+            "launches_by_rows": {name: {str(rows): count for rows, count in
+                                        getattr(gk, name).launches_by_rows.items()}
+                                 for name in ROW_COUNTED_DECODERS}}
 
 
 def check_decode(tag, argv, launches, record):
@@ -1124,6 +1210,8 @@ def drive_path(tag, workdir, genotype_args, counters, expect, n_snps=N_SNPS):
                        ("gwas_grm", ["--gwas", "--grm", str(workdir / "grm")] + args
                         + ["--out", str(workdir / "mlm")])):
         before = {name: fn.launches for name, fn in counters.items()}
+        for name in ROW_COUNTED_DECODERS:  # each step's record holds its own launches
+            counters[name].launches_by_rows.clear()
         t0 = time.monotonic()
         main(argv)
         seconds[f"{tag}{step}"] = time.monotonic() - t0
@@ -2501,6 +2589,16 @@ def main():
             by_path[tag] = STEP_LAUNCHES[tag][entry["name"]]
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path
+        if entry["name"] in ROW_COUNTED_DECODERS:  # over every step's record
+            by_rows = {}
+            for record in STEP_DECODE.values():
+                for rows, count in record["launches_by_rows"][entry["name"]].items():
+                    by_rows[int(rows)] = by_rows.get(int(rows), 0) + count
+            entry["launches_by_rows"] = {f"R={rows}": count
+                                         for rows, count in sorted(by_rows.items(), reverse=True)}
+            check(sum(by_rows.values()) == entry["launches"],
+                  f"{entry['name']} launches by row count {by_rows} do not add up to "
+                  f"{entry['launches']}")
         if entry["name"] == "fused_refit_moments":
             entry["launches_by_shape"] = {
                 tag: {f"M={rows}": count for rows, count in by_rows.items()}

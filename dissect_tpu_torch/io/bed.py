@@ -227,15 +227,16 @@ class PlinkData:
 
     def _decode_into(self, out, start: int):
         """Fill `out` (a device tensor or a numpy array) with the dosage
-        rows from `start` on, one block of K4 at a time."""
+        rows from `start` on, one block of K4 at a time: K4 writes a device
+        tensor's rows in place; a numpy array gets each block copied back."""
         pos = 0
         for seg, packed in self._packed_rows(start, start + len(out)):
-            block = bed_decode(packed, seg.n_source, seg.cols)
+            rows = len(packed)
             if isinstance(out, np.ndarray):
-                out[pos : pos + len(block)] = block.cpu().numpy()
+                out[pos : pos + rows] = bed_decode(packed, seg.n_source, seg.cols).cpu().numpy()
             else:
-                out[pos : pos + len(block)] = block
-            pos += len(block)
+                bed_decode(packed, seg.n_source, seg.cols, out=out[pos : pos + rows])
+            pos += rows
         return out
 
     def decode_rows(self, start: int, stop: int) -> torch.Tensor:

@@ -17,11 +17,14 @@ PyTorch version beside it:
 
 Each wrapper launches its kernel for tensors on the card (or raises) and
 runs its plain version only for tensors on the CPU.  `launches` counts
-the kernel's launches; `card_calls` on each plain version counts its
-calls on a CUDA tensor, which no path of the port makes.
+the kernel's launches (K4's and K5's also by row count,
+`launches_by_rows`); `card_calls` on each plain version counts its calls
+on a CUDA tensor, which no path of the port makes.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -73,34 +76,52 @@ def _check_bed(packed, n_individuals, cols, what):
 
 
 # ------------------------------------------------------------------- K4 ---
-def plain_bed_decode(packed, n_individuals: int, cols=None):
+def _decode_out(out, n_rows, n_out, device):
+    """K4's destination: `out` checked as a contiguous (n_rows, n_out) int8
+    tensor on `device` (a row slice of a larger tensor is one), or a new one."""
+    if out is None:
+        return torch.empty((n_rows, n_out), dtype=torch.int8, device=device)
+    _check("out", out, torch.int8, 2, device)
+    if tuple(out.shape) != (n_rows, n_out):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {(n_rows, n_out)}")
+    return out
+
+
+def plain_bed_decode(packed, n_individuals: int, cols=None, out=None):
     """The plain version of K4: the 256 x 4 lookup table as a gather
-    (dissect_tpu/io/bed.py decode_bed_rows), then the column index."""
+    (dissect_tpu/io/bed.py decode_bed_rows), then the column index; into
+    `out` when it is given (and returned)."""
     _note_plain(plain_bed_decode, packed)
-    return _lut_decode(packed, n_individuals, cols)
+    d = _lut_decode(packed, n_individuals, cols)
+    if out is None:
+        return d
+    return _decode_out(out, d.shape[0], d.shape[1], packed.device).copy_(d)
 
 
 plain_bed_decode.card_calls = 0
 
 
 def _lut_decode(packed, n_individuals, cols):
-    d = _byte_lut(packed.device)[packed.long()].reshape(packed.shape[0], -1)[:, :n_individuals]
+    rows, n_bytes = packed.shape
+    d = _byte_lut(packed.device)[packed.long()].reshape(rows, 4 * n_bytes)[:, :n_individuals]
     return d if cols is None else d[:, cols.long()]
 
 
-def bed_decode(packed, n_individuals: int, cols=None):
+def bed_decode(packed, n_individuals: int, cols=None, out=None):
     """K4: (R, ceil(N/4)) uint8 .bed rows -> (R, N') int8 dosages of allele
     2, -1 = missing, where N' = N, or N' = len(cols) and column c is source
-    individual cols[c] (int32, any order).
+    individual cols[c] (int32, any order).  `out`, when given, is the
+    contiguous (R, N') int8 tensor the dosages are written into (and which
+    is returned), e.g. a row slice of a larger one.
 
     On the card this launches csrc/bed_decode.cu (or raises); only tensors
     on the CPU take the plain version."""
     if packed.device.type == "cpu":
-        return plain_bed_decode(packed, n_individuals, cols)
+        return plain_bed_decode(packed, n_individuals, cols, out)
     _check_bed(packed, n_individuals, cols, "bed_decode")
     n_rows = packed.shape[0]
     n_out = n_individuals if cols is None else cols.shape[0]
-    out = torch.empty((n_rows, n_out), dtype=torch.int8, device=packed.device)
+    out = _decode_out(out, n_rows, n_out, packed.device)
     if n_rows == 0 or n_out == 0:
         return out
     kernel = cuda_lib.entry("bed_decode", "bed_decode", 3, 3)
@@ -110,10 +131,12 @@ def bed_decode(packed, n_individuals: int, cols=None):
     if rc != 0:
         raise RuntimeError(f"bed_decode: CUDA error {rc}")
     bed_decode.launches += 1
+    bed_decode.launches_by_rows[n_rows] += 1
     return out
 
 
 bed_decode.launches = 0
+bed_decode.launches_by_rows = Counter()
 
 
 # ------------------------------------------------------------------- K5 ---
@@ -151,10 +174,12 @@ def bed_counts(packed, n_individuals: int, cols=None):
     if rc != 0:
         raise RuntimeError(f"bed_counts: CUDA error {rc}")
     bed_counts.launches += 1
+    bed_counts.launches_by_rows[n_rows] += 1
     return out
 
 
 bed_counts.launches = 0
+bed_counts.launches_by_rows = Counter()
 
 
 # ---------------------------------------------------------------- K6, K7 ---

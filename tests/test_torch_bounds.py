@@ -68,6 +68,29 @@ def test_k5_bound_over_the_file_is_its_packed_bytes():
     assert cs.k5_bound(8192, N)[0] == pytest.approx(0.0062, abs=0.0001)
 
 
+def test_k4_bound_at_the_timed_shapes():
+    """K4 as chip_smoke times it: a 2,048-row GRM chunk through a 9,000-entry
+    index (5.1 MB in, 18.4 MB out, 36 KB of index: 7.0 us) and an 8,192-row
+    block of a whole-file decode (20.5 MB in, 81.9 MB out: 30.6 us)."""
+    with_index, by = cs.k4_bound(M_CHUNK, N, n_out=9_000)
+    assert by == "bytes"
+    assert with_index == pytest.approx(0.0070, abs=0.0001)
+    block, by = cs.k4_bound(8192, N)
+    assert by == "bytes"
+    assert block == pytest.approx((8192 * N // 4 + 8192 * N) / 3.35e12 * 1e3)
+    assert block == pytest.approx(0.0306, abs=0.0001)
+
+
+def test_k5_bound_with_an_index():
+    """K5 on an 8,192-row block through a 9,000-entry index: the packed rows
+    are read whole either way, so the bound stays 6.2 us (the index adds
+    36 KB)."""
+    ms, by = cs.k5_bound(8192, N, n_out=9_000)
+    assert by == "bytes"
+    assert ms == pytest.approx((8192 * N // 4 + 32 * 8192 + 4 * 9_000) / 3.35e12 * 1e3)
+    assert ms == pytest.approx(0.0062, abs=0.0001)
+
+
 def test_k6_bound_is_the_batch_bytes():
     """K6 on the BGEN path's batch: 1,024 blocks of 10 + 3N bytes in and
     1,024 x N float32 out, about 72 MB, 21 us."""

@@ -117,6 +117,362 @@ def test_bed_wrappers_never_fall_back(wrapper):
     assert gk.plain_bed_decode.card_calls == gk.plain_bed_counts.card_calls == 0
 
 
+# ------------------------------------------------------------ K4's out= --
+@pytest.mark.parametrize("with_cols", [False, True], ids=["all", "index"])
+@pytest.mark.parametrize("decoder", [gk.bed_decode, gk.plain_bed_decode])
+def test_bed_decode_out_is_written_in_place(native, rng, decoder, with_cols):
+    """out= is a row slice of a larger tensor: the dosages land in it, the
+    same tensor comes back, and the rows around it are not touched."""
+    n, m = 39, 7
+    rows = _packed_rows(rng, m, n)
+    cols = np.array([38, 0, 5, 21, 4, 17, 9, 30], dtype=np.int32) if with_cols else None
+    n_out = n if cols is None else len(cols)
+    buf = torch.full((m + 2, n_out), 77, dtype=torch.int8)
+    out = buf[1 : m + 1]
+    got = decoder(torch.as_tensor(rows), n, None if cols is None else torch.as_tensor(cols),
+                  out=out)
+    assert got is out
+    want = native[0].decode(rows, n)
+    np.testing.assert_array_equal(buf[1 : m + 1].numpy(), want if cols is None else want[:, cols])
+    assert (buf[0] == 77).all() and (buf[m + 1] == 77).all()
+
+
+@pytest.mark.parametrize("with_cols", [False, True], ids=["all", "index"])
+def test_bed_decoders_take_no_rows(with_cols):
+    """Zero rows decode to (0, N') and count to (0, 4)."""
+    rows = torch.zeros((0, 3), dtype=torch.uint8)
+    cols = torch.tensor([2, 0], dtype=torch.int32) if with_cols else None
+    assert tuple(gk.bed_decode(rows, 10, cols).shape) == (0, 2 if with_cols else 10)
+    counts = gk.bed_counts(rows, 10, cols)
+    assert tuple(counts.shape) == (0, 4) and counts.dtype == torch.int64
+
+
+def _bad_outs():
+    wide = torch.zeros((5, 12), dtype=torch.int8)
+    return {
+        "rows": torch.zeros((4, 10), dtype=torch.int8),
+        "columns": torch.zeros((5, 9), dtype=torch.int8),
+        "uint8": torch.zeros((5, 10), dtype=torch.uint8),
+        "int16": torch.zeros((5, 10), dtype=torch.int16),
+        "flat": torch.zeros((50,), dtype=torch.int8),
+        "column_slice": wide[:, :10],
+        "transposed": torch.zeros((10, 5), dtype=torch.int8).T,
+        "meta": torch.empty((5, 10), dtype=torch.int8, device="meta"),
+    }
+
+
+@pytest.mark.parametrize("bad", list(_bad_outs()))
+@pytest.mark.parametrize("decoder", [gk.bed_decode, gk.plain_bed_decode])
+def test_bed_decode_out_is_checked(rng, decoder, bad):
+    """out= must be a contiguous (R, N') int8 tensor on the rows' device."""
+    rows = torch.as_tensor(_packed_rows(rng, 5, 10))
+    out = _bad_outs()[bad]
+    with pytest.raises((ValueError, TypeError)):
+        decoder(rows, 10, out=out)
+
+
+def test_decode_rows_writes_each_block_in_place(tmp_path, rng, monkeypatch):
+    """decode_rows hands K4 each block's rows of its destination (out=),
+    through an individual index, and still equals the JAX decode."""
+    monkeypatch.setattr(bed, "BLOCK_ROWS", 4)
+    targets = []
+
+    def spy(packed, n, cols=None, out=None):
+        targets.append(None if out is None else out.data_ptr())
+        return gk.bed_decode(packed, n, cols, out)
+
+    monkeypatch.setattr(bed, "bed_decode", spy)
+    d = make_dosage(rng, 11, 26, missing_rate=0.1)
+    prefix, _ = make_plink(tmp_path, d, prefix="a")
+    theirs = jax_bed.read_plink(prefix)
+    keys = [theirs.individual_keys[i] for i in (25, 3, 0, 14, 9, 8)]
+    ours = bed.read_plink(prefix, device="cpu").filter(keep_individuals=keys)
+    got = ours.decode_rows(1, 11)
+    np.testing.assert_array_equal(got.numpy(), theirs.filter(keep_individuals=keys).dosages()[1:11])
+    row_bytes = got.shape[1] * got.element_size()
+    assert targets == [got.data_ptr() + r * row_bytes for r in (0, 4, 8)]
+
+
+# ------------------------------------- the integer identities of K4 and K5 --
+# numpy models of csrc/bed_decode.cu's arithmetic, held against the plain
+# versions: the nibble spread and __byte_perm selector map of K4, the bit
+# plane popcounts of K5, and how each kernel cuts a row at the alignment of
+# its address.
+DOSAGE_BYTES = 0x0201FF00  # byte k: the dosage of code k (0, -1, 1, 2)
+LO_BITS = 0x55555555
+
+
+def _nibbles8(b):
+    b = (b | (b << 4)) & 0x0F0F
+    return (b | (b << 2)) & 0x3333
+
+
+def _byte_perm(x, y, s):
+    """CUDA's __byte_perm(x, y, s): byte k of the result is byte
+    (s >> 4k) & 7 of the eight bytes of y:x."""
+    s = np.asarray(s, dtype=np.uint64)
+    assert ((s >> 3) & 0x1111 == 0).all()  # the selectors here are all below 8
+    pool = np.uint64(x) | (np.uint64(y) << np.uint64(32))
+    out = np.zeros_like(s)
+    for k in range(4):
+        sel = (s >> np.uint64(4 * k)) & np.uint64(7)
+        out |= ((pool >> (np.uint64(8) * sel)) & np.uint64(0xFF)) << np.uint64(8 * k)
+    return out
+
+
+def _dosages4(nibbles):
+    return _byte_perm(DOSAGE_BYTES, 0, nibbles)
+
+
+def _decode_word(w):
+    """decode_word: a packed uint32 word to four uint32 words of dosages."""
+    w = np.asarray(w, dtype=np.uint64)
+    halves = []
+    for part in (w & np.uint64(0xFFFF), w >> np.uint64(16)):
+        part = (part | (part << np.uint64(8))) & np.uint64(0x00FF00FF)
+        part = (part | (part << np.uint64(4))) & np.uint64(0x0F0F0F0F)
+        part = (part | (part << np.uint64(2))) & np.uint64(0x33333333)
+        halves += [_dosages4(part & np.uint64(0xFFFF)), _dosages4(part >> np.uint64(16))]
+    return np.stack(halves, axis=-1)
+
+
+def _word_bytes(words):
+    """uint32 words (any shape) -> their little-endian int8 bytes, flat."""
+    return np.asarray(words, dtype="<u4").reshape(-1).view(np.int8)
+
+
+def _plain_k4(rows, n, cols=None):
+    return gk.plain_bed_decode(torch.as_tensor(rows), n,
+                               None if cols is None else torch.as_tensor(cols)).numpy()
+
+
+def _plain_k5(rows, n, cols=None):
+    return gk.plain_bed_counts(torch.as_tensor(rows), n,
+                               None if cols is None else torch.as_tensor(cols)).numpy()
+
+
+def test_byte_perm_selector_map_decodes_every_byte():
+    """Each of the 256 packed bytes: its codes spread one to a nibble and
+    __byte_perm(0x0201FF00, 0, nibbles) give the plain decode's 4 dosages."""
+    every = np.arange(256, dtype=np.uint8)[:, None]
+    ours = _word_bytes(_dosages4(_nibbles8(every.astype(np.uint64)))).reshape(256, 4)
+    np.testing.assert_array_equal(ours, _plain_k4(every, 4))
+
+
+def test_word_decode_matches_plain_k4(rng):
+    """decode_word on random and every-code words: 16 dosages a word."""
+    words = np.concatenate([rng.integers(0, 2 ** 32, size=500, dtype=np.uint64),
+                            np.array([0, 0x55555555, 0xAAAAAAAA, 0xFFFFFFFF], np.uint64)])
+    rows = words.astype("<u4").view(np.uint8).reshape(-1, 4)
+    ours = _word_bytes(_decode_word(words)).reshape(-1, 16)
+    np.testing.assert_array_equal(ours, _plain_k4(rows, 16))
+
+
+def _tally(w, m):
+    """K5's bit planes: counts of codes 0b01, 0b10, 0b11 among the fields
+    of the words w that m keeps."""
+    w, m = np.asarray(w, dtype=np.uint64), np.asarray(m, dtype=np.uint64)
+    lo, hi = w & m, (w >> np.uint64(1)) & m
+    both = lo & hi
+    popc = np.vectorize(lambda v: bin(int(v)).count("1"))
+    return np.array([popc(lo ^ both).sum(), popc(hi ^ both).sum(), popc(both).sum()])
+
+
+def _as_counts(c, n_counted):
+    return np.array([c[0], n_counted - c.sum(), c[1], c[2]])
+
+
+@pytest.mark.parametrize("rem", [0, 1, 2, 3])
+def test_bitplane_counts_match_plain_k5(rng, rem):
+    """K5 without an index: popc(lo & ~hi), popc(hi & ~lo), popc(lo & hi)
+    of each word, the codes past N masked off in the last byte, equal the
+    plain counts; all 256 byte values in one row, random words in others."""
+    every = np.tile(np.arange(256, dtype=np.uint8), 2)  # a row of 512 bytes
+    for row in [every, *rng.integers(0, 256, size=(6, 37), dtype=np.uint8)]:
+        n = 4 * (len(row) - 1) + (rem or 4)
+        full, last = n >> 2, row[n >> 2] if rem else None
+        padded = np.zeros(-(-full // 4) * 4, dtype=np.uint8)
+        padded[:full] = row[:full]
+        c = _tally(padded.view("<u4"), LO_BITS)
+        if rem:
+            c += _tally(last, LO_BITS & ((1 << (2 * rem)) - 1))
+        np.testing.assert_array_equal(_as_counts(c, n), _plain_k5(row[None, :], n)[0])
+
+
+@pytest.mark.parametrize("n", [37, 38, 39, 40, 1001])
+def test_masked_bitplane_counts_match_plain_counts_with_an_index(rng, n):
+    """K5 with an index: the kept individuals as a mask (bit 2 (j mod 16) of
+    word j / 16), each row counted through it from every start alignment
+    (the mask word cut by the funnel shift), equal the plain counts."""
+    rows = _packed_rows(rng, 5, n)
+    cols = rng.permutation(n)[: n - n // 3].astype(np.int32)
+    n_bytes = rows.shape[1]
+    mask = np.zeros(n_bytes // 4 + 2, dtype=np.uint64)
+    for j in cols:
+        mask[j >> 4] |= np.uint64(1 << (2 * (j & 15)))
+    mask_bytes = mask.astype("<u4").view(np.uint8)
+    for r, row in enumerate(rows):
+        for address in range(4):  # the row's start, mod 4
+            head = min(n_bytes, (4 - address) & 3)
+            words = (n_bytes - head) >> 2
+            done = head + 4 * words
+            c = sum(_tally(row[b], mask_bytes[b]) for b in [*range(head), *range(done, n_bytes)])
+            body = row[head:done].copy().view("<u4")
+            pairs = (mask[1 : words + 1] << np.uint64(32)) | mask[:words]
+            cut = (pairs >> np.uint64(8 * head)) & np.uint64(0xFFFFFFFF)
+            c = c + _tally(body, cut)
+            np.testing.assert_array_equal(_as_counts(np.asarray(c), len(cols)),
+                                          _plain_k5(rows, n, cols)[r])
+
+
+@pytest.mark.parametrize("n_rows, n", [(1, 4), (3, 8), (5, 1004), (7, 1008), (2, 1012), (9, 2500)])
+def test_flat_stream_cut_at_every_alignment(rng, n_rows, n):
+    """K4 without an index at N % 4 == 0: the whole buffer as one stream,
+    the bytes before the first 4-byte boundary of `packed` and after the
+    last word one at a time, the words in runs of 128 (lane l of a warp
+    words l, l + 32, l + 64, l + 96 of a run; a short last run word by
+    word), each word to 16 dosages, covers every output byte once, as the
+    plain decode, for each start of `packed` mod 4."""
+    rows = _packed_rows(rng, n_rows, n) if n_rows > 1 else rng.integers(
+        0, 256, size=(1, n // 4), dtype=np.uint8)
+    flat = rows.reshape(-1)
+    total = len(flat)
+    want = _plain_k4(rows, n).reshape(-1)
+    run_words, lanes = 128, 32
+    for address in range(4):
+        out = np.full(4 * total, 99, dtype=np.int8)
+        writes = np.zeros(4 * total, dtype=np.int64)
+        head = min(total, (4 - address) & 3)
+        words = (total - head) >> 2
+        done = head + 4 * words
+        body = flat[head:done].copy().view("<u4")
+        for run in range(0, words, run_words):
+            ks = (run + np.arange(lanes)[:, None] + lanes * np.arange(run_words // lanes)).ravel()
+            for k in ks[ks < words]:
+                at = 4 * head + 16 * k
+                out[at : at + 16] = _word_bytes(_decode_word(body[k]))
+                writes[at : at + 16] += 1
+        for t in range(head + total - done):
+            b = t if t < head else done + t - head
+            out[4 * b : 4 * b + 4] = _word_bytes(_dosages4(_nibbles8(np.uint64(flat[b]))))
+            writes[4 * b : 4 * b + 4] += 1
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(out, want)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 6, 7, 37, 1001, 1002, 1003])
+def test_row_words_cut_at_every_output_alignment(rng, n):
+    """K4 without an index at N % 4 != 0: each output row from its first
+    4-byte boundary (h head columns) on in words, word k read from the one
+    or two packed bytes under columns h + 4k .. h + 4k + 3, and the head
+    and tail columns one by one, as the plain decode."""
+    rows = _packed_rows(rng, 3, n) if n > 4 else rng.integers(0, 256, size=(3, 1), dtype=np.uint8)
+    want = _plain_k4(rows, n)
+    code = np.array([0, -1, 1, 2], dtype=np.int8)
+    for r, row in enumerate(rows):
+        for address in range(4):  # the output row's start, mod 4
+            out = np.full(n, 99, dtype=np.int8)
+            h = min(n, (4 - address) & 3)
+            words = (n - h) >> 2
+            for k in range(words):
+                c = h + 4 * k
+                bits = int(row[c >> 2])
+                if h:
+                    bits = (bits | (int(row[(c >> 2) + 1]) << 8)) >> (2 * h)
+                out[c : c + 4] = _word_bytes(_dosages4(_nibbles8(np.uint64(bits & 0xFF))))
+            for c in [*range(h), *range(h + 4 * words, n)]:
+                out[c] = code[(row[c >> 2] >> (2 * (c & 3))) & 3]
+            np.testing.assert_array_equal(out, want[r])
+
+
+@pytest.mark.parametrize("n_bytes", [1, 5, 15, 16, 17, 31, 32, 33, 251, 252, 253, 2500])
+def test_staged_row_mirrors_the_row_at_every_alignment(rng, n_bytes):
+    """K4 with an index copies a row into shared memory as every 16-byte
+    word that holds one of its bytes, buf[i] = the byte at (row start
+    rounded down to 16) + i, and gathers from buf + (start mod 16): every
+    row byte lands where the gather reads it, inside the buffer the
+    launcher sizes (round16(n_bytes + 15))."""
+    row = rng.integers(0, 256, size=n_bytes, dtype=np.uint8)
+    buf_bytes = (n_bytes + 15 + 15) & ~15
+    for a in range(16):
+        memory = np.full(a + n_bytes + 32, 255, dtype=np.uint8)  # the row at offset a of a 16-byte word
+        memory[a : a + n_bytes] = row
+        words = (a + n_bytes + 15) >> 4
+        assert 16 * words <= buf_bytes
+        buf = memory[: 16 * words]
+        np.testing.assert_array_equal(buf[a : a + n_bytes], row)
+
+
+@pytest.mark.parametrize("n_out", [1, 9, 904, 908, 911, 1008, 4096, 4097, 9000, 9001])
+def test_gather_groups_cover_every_column_once(n_out):
+    """K4 with an index: ceil(n_out / 4,096) tiles share the columns evenly
+    (tile_cols = ceil(n_out / tiles) rounded up to W); 256 threads x 16
+    columns a tile, in groups of W consecutive columns (16, 8, 4 or 1: the
+    widest dividing n_out, as for an aligned output), thread t's group g at
+    tile + (256 g + t) W: every output column is written by one thread,
+    W-aligned, and no tile is wider than 4,096 columns."""
+    threads, per_thread = 256, 16
+    for width in (16, 8, 4, 1):
+        if n_out % width:
+            continue
+        hits = np.zeros(n_out, dtype=np.int64)
+        tiles = -(-n_out // (threads * per_thread))
+        tile_cols = -(-(-(-n_out // tiles)) // width) * width
+        assert tile_cols <= threads * per_thread and tiles * tile_cols >= n_out
+        for x in range(tiles):
+            tile, end = x * tile_cols, min(n_out, (x + 1) * tile_cols)
+            for g in range(per_thread // width):
+                c0 = tile + (g * threads + np.arange(threads)) * width
+                c0 = c0[c0 < end]
+                assert (c0 % width == 0).all() and (c0 + width <= end).all()
+                for e in range(width):
+                    np.add.at(hits, c0 + e, 1)
+        assert (hits == 1).all()
+
+
+def test_gather_shift_places_each_code_in_its_nibble():
+    """K4 with an index: ((byte << 16) >> (2 (j mod 4) + 16 - 4 e)) &
+    (3 << 4 e) is code j mod 4 of the byte in nibble e, for every byte,
+    every j mod 4 and every place e of a 4-column word."""
+    byte = np.arange(256, dtype=np.uint64)
+    for jm in range(4):
+        for e in range(4):
+            sh = 2 * jm + 16 - 4 * e
+            got = ((byte << np.uint64(16)) >> np.uint64(sh)) & np.uint64(3 << (4 * e))
+            np.testing.assert_array_equal(got, ((byte >> np.uint64(2 * jm)) & np.uint64(3))
+                                          << np.uint64(4 * e))
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 63, 64, 65, 67, 1001, 1004, 10_000])
+def test_count_rows_cut_at_every_alignment(rng, n):
+    """K5 without an index: bytes [0, N // 4) in 16-byte chunks from the
+    row's first 16-byte boundary, the bytes before it and after the last
+    chunk one per lane, and byte N // 4 masked to its N % 4 codes: each
+    byte counted once, as the plain counts."""
+    rows = _packed_rows(rng, 2, n) if n > 4 else rng.integers(
+        0, 256, size=(2, (n + 3) // 4), dtype=np.uint8)
+    full, rem = n >> 2, n & 3
+    want = _plain_k5(rows, n)
+    for r, row in enumerate(rows):
+        for address in range(16):
+            head = min(full, (16 - address) & 15)
+            chunks = (full - head) >> 4
+            done = head + 16 * chunks
+            seen = np.zeros(len(row), dtype=np.int64)
+            c = np.zeros(3, dtype=np.int64)
+            for b in [*range(head), *range(done, full)]:
+                c += _tally(row[b], 0x55)
+                seen[b] += 1
+            if chunks:
+                c += _tally(row[head:done].copy().view("<u4"), LO_BITS)
+                seen[head:done] += 1
+            if rem:
+                c += _tally(row[full], 0x55 & ((1 << (2 * rem)) - 1))
+                seen[full] += 1
+            assert (seen == 1).all()
+            np.testing.assert_array_equal(_as_counts(c, n), want[r])
+
+
 # ------------------------------------------------------------------ K6, K7 --
 def _layout2_block(rng, n, bits, phased, ploidy=None):
     """An uncompressed layout-2 block of random `bits`-bit values, sample
@@ -285,8 +641,8 @@ def test_decodes_go_in_bounded_blocks(tmp_path, rng, monkeypatch, block_rows):
     same fileset as JAX's."""
     monkeypatch.setattr(bed, "BLOCK_ROWS", block_rows)
     sizes = []
-    monkeypatch.setattr(bed, "bed_decode", lambda packed, n, cols=None: (
-        sizes.append(packed.shape[0]), gk.bed_decode(packed, n, cols))[1])
+    monkeypatch.setattr(bed, "bed_decode", lambda packed, n, cols=None, out=None: (
+        sizes.append(packed.shape[0]), gk.bed_decode(packed, n, cols, out))[1])
     d1, d2 = make_dosage(rng, 11, 23, missing_rate=0.1), make_dosage(rng, 8, 23, missing_rate=0.1)
     p1, _ = make_plink(tmp_path, d1, prefix="a")
     p2, _ = make_plink(tmp_path, d2, prefix="b")

@@ -14,16 +14,22 @@ Phases, each of which stops the script on failure:
                odd, 4- and 8-byte row strides, an individual index that
                drops and reorders or repeats, `packed`, the index and out=
                views that start inside their buffers, 0 and 1 rows, rows
-               past K4's staging limit, all-missing rows, 1-, 3-, 8-, 12-
-               and 16-bit and phased BGEN blocks and one K6 must refuse),
-               and time kernel, plain version and (where one exists) the
+               past K4's staging limit, all-missing rows; BGEN blocks of
+               1 to 32 bits, phased, all missing, with probability
+               streams that stop short, at every offset mod 16, blocks of
+               several tiles with a haploid sample in the last, a batch
+               of few variants (split over several blocks each), and
+               blocks K6 and K7 must refuse: phase_bgen_kernels), and
+               time kernel, plain version and (where one exists) the
                single PyTorch call that computes the same function (for K4
                the lookup gather lut[rows.long()]), with each kernel's
                bound (bytes at the memory rate, float32 flops and int8
                tensor-core operations each at its pipe's rate); K4 at a
                2,048-SNP chunk with and without a 9,000-entry index and at
                an 8,192-row block, K5 at an 8,192-row block with and
-               without it;
+               without it, K6 and K7 at the BGEN path's 1,024-block batch
+               and at UK Biobank's N = 487,409 (64 blocks), warm and with
+               the L2 cache emptied before each call;
   3. golden    the CLI on the repository's golden cohort (tests/golden), PLINK
                and BGEN input, dense `--reml --blue --snp-blup`, `--pca`,
                `--bivar-reml`, regional `--reml`, grouped `--gwas`,
@@ -151,6 +157,10 @@ GLMM_SMALL = (2_000, 5_000)  # individuals x SNPs of the glmm card-vs-CPU filese
 GRM_CHUNK = 2048  # grm_from_plink's chunk: K1's, K2's and K4's row count on the main paths
 BLOCK_ROWS = 8192  # PlinkData's row block: K5's row count in stats() (io/bed.py BLOCK_ROWS)
 BGEN_BATCH = 1024  # read_bgen's batch: K6's blocks per launch (io/bgen.py _BATCH)
+# K6 and K7 are also timed at UK Biobank's width: the imputed release's
+# 487,409 samples, 64 variants (94 MB of layout-2 blocks, 187 MB of layout 1)
+UKB_SAMPLES = 487_409
+UKB_VARIANTS = 64
 # The layout-1 BGEN step's variants and individuals (a corner of the BGEN
 # cohort), and its GRM's distance from the source dosages' GRM: layout 1
 # rounds each probability to 1/32768, a dosage error under 2e-4, which
@@ -661,29 +671,54 @@ def compare_k5(gen, m, n, device, with_cols, timed=False, row_offset=0, repeat=F
     }
 
 
-def _layout2_block(rng, n, bits, phased, ploidy):
-    """One uncompressed layout-2 block of random `bits`-bit values."""
-    acc = 0
-    for i, v in enumerate(rng.integers(0, 2 ** bits, size=2 * n).tolist()):
-        acc |= v << (i * bits)
-    probs = acc.to_bytes((2 * n * bits + 7) // 8, "little")
-    return (np.array([n], "<u4").tobytes() + np.array([2], "<u2").tobytes() + bytes([2, 2])
-            + bytes(ploidy) + bytes([phased, bits]) + probs)
+def _layout2_block(rng, n, bits, phased, ploidy, cut=0):
+    """One uncompressed layout-2 block of random `bits`-bit values; with
+    `cut`, its probability stream that many bytes short (the values past
+    its end read as 0)."""
+    vals = rng.integers(0, 2 ** bits, size=2 * n, dtype=np.uint64)
+    planes = (vals[:, None] >> np.arange(bits, dtype=np.uint64)) & np.uint64(1)
+    probs = np.packbits(planes.astype(np.uint8).ravel(), bitorder="little").tobytes()
+    block = (np.array([n], "<u4").tobytes() + np.array([2], "<u2").tobytes() + bytes([2, 2])
+             + bytes(ploidy) + bytes([phased, bits]) + probs)
+    return block[:len(block) - cut]
+
+
+def _some_missing(rng, n):
+    ploidy = np.full(n, 2, dtype=np.uint8)
+    ploidy[rng.choice(n, size=max(1, n // 50), replace=False)] = 0x82
+    return ploidy
 
 
 def _ragged_l2_blocks(rng, n):
-    """Layout-2 blocks at 1, 3, 8, 12 and 16 bits, unphased and phased, a
-    few missing samples each, one all missing, and one K6 must refuse (a
+    """Layout-2 blocks at 1, 3, 8, 11, 12, 16, 24, 31 and 32 bits (K6's
+    table up to 11, the division in line beyond), unphased and phased, a few
+    missing samples each; one all missing; two whose probability stream
+    stops short, followed by other bytes (8 bits at half its samples, 12
+    bits 7 bytes short: the rest reads as 0); and one K6 must refuse (a
     haploid sample: status 1)."""
-    ploidy = np.full(n, 2, dtype=np.uint8)
-    ploidy[rng.choice(n, size=max(1, n // 50), replace=False)] = 0x82
+    ploidy = _some_missing(rng, n)
     blocks = [_layout2_block(rng, n, bits, phased, ploidy)
-              for bits in (1, 3, 8, 12, 16) for phased in (0, 1)]
+              for bits in (1, 3, 8, 11, 12, 16, 24, 31, 32) for phased in (0, 1)]
     blocks.append(_layout2_block(rng, n, 8, 0, np.full(n, 0x82, dtype=np.uint8)))
+    blocks.append(_layout2_block(rng, n, 8, 0, ploidy, cut=n))
+    blocks.append(_layout2_block(rng, n, 12, 1, ploidy, cut=7))
     haploid = ploidy.copy()
     haploid[n // 2] = 1
     blocks.append(_layout2_block(rng, n, 8, 0, haploid))
-    return blocks, [0] * 11 + [1]
+    return blocks, [0] * (len(blocks) - 1) + [1]
+
+
+def _tiled_l2_blocks(rng, n):
+    """Blocks of several of K6's 2,048-sample tiles: 8-bit unphased,
+    16-bit phased, 8-bit with its stream stopping at half its samples, and
+    one whose last sample is haploid, found in its last tile after the
+    earlier tiles decoded (status 1, the whole row NaN)."""
+    ploidy = _some_missing(rng, n)
+    haploid = ploidy.copy()
+    haploid[-1] = 1
+    blocks = [_layout2_block(rng, n, 8, 0, ploidy), _layout2_block(rng, n, 16, 1, ploidy),
+              _layout2_block(rng, n, 8, 0, ploidy, cut=n), _layout2_block(rng, n, 8, 0, haploid)]
+    return blocks, [0, 0, 0, 1]
 
 
 def _main_l2_batch(rng, k, n):
@@ -699,29 +734,67 @@ def _main_l2_batch(rng, k, n):
     return [row.tobytes() for row in raw], [0] * k
 
 
-def _blocks_on_card(blocks, device):
+def _blocks_on_card(blocks, device, align=False):
+    """The blocks in one buffer on the card, end to end as read_bgen lays
+    them or, with `align`, block i at an offset = i mod 16, after 0-15
+    filler bytes 0xA5."""
+    parts, offsets, at = [], [], 0
+    for i, block in enumerate(blocks):
+        pad = (i - at) % 16 if align else 0
+        parts += [b"\xa5" * pad, block]
+        offsets.append(at + pad)
+        at += pad + len(block)
     lengths = np.array([len(b) for b in blocks], dtype=np.int64)
-    offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
-    buf = torch.frombuffer(bytearray(b"".join(blocks)), dtype=torch.uint8).to(device)
-    return buf, torch.as_tensor(offsets, device=device), torch.as_tensor(lengths, device=device)
+    buf = torch.frombuffer(bytearray(b"".join(parts)), dtype=torch.uint8).to(device)
+    return (buf, torch.as_tensor(np.array(offsets, dtype=np.int64), device=device),
+            torch.as_tensor(lengths, device=device))
 
 
-def compare_bgen(kernel, blocks, statuses, n, device, timed):
+def time_cold_ms(fn, iters=10):
+    """Mean milliseconds of fn() on the card with the 50 MB L2 emptied
+    before each call (a 256 MB write), by CUDA events around each call;
+    the stream first spins, so the host has queued the call."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    fn()
+    for _ in range(iters):
+        flush.fill_(1)
+        torch.cuda._sleep(HOLD_CYCLES // 100)
+        start.record()
+        fn()
+        stop.record()
+        check(not start.query(), "the cold call started before the host had queued it")
+        torch.cuda.synchronize()
+        total += start.elapsed_time(stop)
+    return total / iters
+
+
+def compare_bgen(kernel, blocks, statuses, n, device, timed=False, align=False, out_shift=0):
     """K6 (`bgen_decode_l2`) or K7 (`bgen_decode_l1`) against its plain
-    version on the same uploaded blocks: dosages bit-exact with NaN
-    positions equal, statuses equal and as expected."""
+    version on the same uploaded blocks (with `align`, at every offset mod
+    16): dosages bit-exact with NaN positions equal, statuses equal and as
+    expected; the kernel writes into out=, a view `out_shift` floats into
+    its buffer, whose floats around it stay untouched.  Timed: the kernel
+    into out= (as io/bgen.py calls it), held, and again with the L2 cache
+    emptied before each call (cold_ms), and the plain version."""
     from dissect_tpu_torch.io import genotype_kernels as gk
 
     fn, plain = getattr(gk, kernel), getattr(gk, "plain_" + kernel)
-    buf, offsets, lengths = _blocks_on_card(blocks, device)
-    out, status = fn(buf, offsets, lengths, n)
+    buf, offsets, lengths = _blocks_on_card(blocks, device, align)
+    size = len(blocks) * n
+    store = torch.full((out_shift + size + 4,), 77.0, device=device)
+    dst = store[out_shift:out_shift + size].view(len(blocks), n)
+    out, status = fn(buf, offsets, lengths, n, out=dst)
     ref, ref_status = plain(buf, offsets, lengths, n)
     torch.cuda.synchronize()
-    equal = _same_bits(out, ref) and bool(torch.equal(status, ref_status))
+    untouched = bool((store[:out_shift] == 77).all()) and bool((store[out_shift + size:] == 77).all())
+    equal = out is dst and untouched and _same_bits(out, ref) and bool(torch.equal(status, ref_status))
     err = _max_abs_diff(out, ref)
     expected = status.cpu().tolist() == list(statuses)
-    log(f"{kernel} {len(blocks)} blocks n={n}: bit-exact {equal}, max abs err {err}, "
-        f"statuses as expected {expected}")
+    log(f"{kernel} {len(blocks)} blocks n={n}{' at every offset mod 16' if align else ''}"
+        f"{f' out {out_shift} floats in' if out_shift else ''}: bit-exact {equal}, "
+        f"max abs err {err}, statuses as expected {expected}")
     check(equal, f"{kernel} disagrees with its plain version")
     check(expected, f"{kernel} statuses {status.cpu().tolist()} != {list(statuses)}")
     if not timed:
@@ -731,19 +804,59 @@ def compare_bgen(kernel, blocks, statuses, n, device, timed):
     return {
         "name": kernel, "route": "cuda", "source": "dissect_tpu_torch/csrc/bgen_decode.cu",
         "replaces": f"dissect_tpu/native/bgen_decode.cpp:{start}", "max_abs_err": err,
-        "ms": time_ms(lambda: fn(buf, offsets, lengths, n), iters=20, held=True),
+        "ms": time_ms(lambda: fn(buf, offsets, lengths, n, out=dst), iters=20, held=True),
+        "cold_ms": time_cold_ms(lambda: fn(buf, offsets, lengths, n, out=dst)),
         "plain_ms": time_ms(lambda: plain(buf, offsets, lengths, n), iters=3),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "shape": {"blocks": len(blocks), "n": n, "bytes": buf.numel()},
+        "shape": {"blocks": len(blocks), "n": n, "bytes": buf.numel(),
+                  "out_bytes": 4 * size},
     }
 
 
 def _main_l1_batch(rng, k, n):
     """k layout-1 blocks of 6 N bytes: uint16 probability triples, 1% of
     samples all zero (missing)."""
-    triples = rng.integers(0, 32769, size=(k, n, 3)).astype("<u2")
+    triples = rng.integers(0, 32769, size=(k, n, 3), dtype=np.uint16).astype("<u2")
     triples[rng.random((k, n)) < 0.01] = 0
     return [t.tobytes() for t in triples], [0] * k
+
+
+def phase_bgen_kernels(device):
+    """K6 and K7 against their plain versions (bit-exact), then timed:
+    every bit width, phased, missing samples, streams that stop short, a
+    refused block, blocks at every offset mod 16 and N % 4 in {0, 1, 2,
+    3}, out= views into their buffers, blocks of several tiles with a
+    haploid sample in the last (few variants, split over several blocks
+    each, and a batch of one block each); then the BGEN path's batch
+    (1,024 8-bit unphased blocks at N = 10,000), a layout-1 batch of the
+    same size, and both at UK Biobank's N = 487,409 (64 variants)."""
+    rng = np.random.default_rng(SEED + 4)
+    blocks, statuses = _ragged_l2_blocks(rng, 1001)
+    compare_bgen("bgen_decode_l2", blocks, statuses, 1001, device)
+    for n in (1001, 1002, 1003, 1004):
+        blocks, statuses = _ragged_l2_blocks(rng, n)
+        compare_bgen("bgen_decode_l2", blocks, statuses, n, device, align=True, out_shift=n % 3)
+    tiled, tiled_status = _tiled_l2_blocks(rng, 5003)
+    compare_bgen("bgen_decode_l2", tiled, tiled_status, 5003, device, out_shift=1)
+    blocks, statuses = _main_l2_batch(rng, BGEN_BATCH - len(tiled), 5003)
+    compare_bgen("bgen_decode_l2", blocks + tiled, statuses + tiled_status, 5003, device)
+    k6 = compare_bgen("bgen_decode_l2", *_main_l2_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
+                      N_INDIVIDUALS, device, timed=True)
+    for n in (1001, 1002, 1003):
+        blocks, statuses = _main_l1_batch(rng, 17, n)
+        compare_bgen("bgen_decode_l1", blocks + [b"\x00" * (6 * n - 1)], statuses + [1], n,
+                     device, align=True, out_shift=n % 3)
+    blocks, statuses = _main_l1_batch(rng, 3, 5003)
+    compare_bgen("bgen_decode_l1", blocks + [b"\x01" * (6 * 5003 + 6)], statuses + [1], 5003,
+                 device)
+    k7 = compare_bgen("bgen_decode_l1", *_main_l1_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
+                      N_INDIVIDUALS, device, timed=True)
+    keys = ("ms", "cold_ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "shape")
+    for entry, kernel, batch in ((k6, "bgen_decode_l2", _main_l2_batch),
+                                 (k7, "bgen_decode_l1", _main_l1_batch)):
+        entry["ukb_shape"] = _timed_entry(compare_bgen(
+            kernel, *batch(rng, UKB_VARIANTS, UKB_SAMPLES), UKB_SAMPLES, device, timed=True), keys)
+    return k6, k7
 
 
 def phase_kernels(device):
@@ -817,19 +930,7 @@ def phase_kernels(device):
         compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, True, timed=True))
     k5["repeated_index"] = _timed_entry(
         compare_k5(gen, BLOCK_ROWS, N_INDIVIDUALS, device, True, timed=True, repeat=True))
-    # K6, K7: every bit width, phased, missing samples, a refused block;
-    # then the BGEN path's batch (1,024 8-bit unphased blocks) and a
-    # layout-1 batch of the same size
-    rng = np.random.default_rng(SEED + 4)
-    blocks, statuses = _ragged_l2_blocks(rng, 1001)
-    compare_bgen("bgen_decode_l2", blocks, statuses, 1001, device, timed=False)
-    k6 = compare_bgen("bgen_decode_l2", *_main_l2_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
-                      N_INDIVIDUALS, device, timed=True)
-    blocks, statuses = _main_l1_batch(rng, 7, 1001)
-    compare_bgen("bgen_decode_l1", blocks + [b"\x00" * 6005], statuses + [1], 1001, device,
-                 timed=False)
-    k7 = compare_bgen("bgen_decode_l1", *_main_l1_batch(rng, BGEN_BATCH, N_INDIVIDUALS),
-                      N_INDIVIDUALS, device, timed=True)
+    k6, k7 = phase_bgen_kernels(device)
     return [k1, k2, k3, k4, k5, k6, k7]
 
 

@@ -358,9 +358,8 @@ def read_bgen(
             with timers.phase("BgenInflate"):
                 datas = list(pool.map(unpack, range(start, stop)))
             with timers.phase("BgenDecode"):
-                rows, decoded[start:stop], n_host = _decode_blocks(
-                    datas, n_samples, layout, device)
-                dosages[start:stop] = rows
+                _, decoded[start:stop], n_host = _decode_blocks(
+                    datas, n_samples, layout, device, out=dosages[start:stop])
             unsupported += n_host
     read_bgen.unsupported += unsupported
     if unsupported:
@@ -377,14 +376,15 @@ def read_bgen(
 read_bgen.unsupported = 0
 
 
-def _decode_blocks(datas: List[bytes], n_samples: int, layout: int, device):
+def _decode_blocks(datas: List[bytes], n_samples: int, layout: int, device, out=None):
     """A batch of uncompressed probability blocks -> ((k, N) float32
-    dosages on `device`, NaN = missing; (k,) bool, whether each block
-    decoded; how many went to the host parser).  The blocks go end to end
-    into one pinned buffer, which K6 (layout 2) or K7 (layout 1) decodes
-    after one upload; a block the kernel does not take (status 1) is
-    parsed on the host, and its row stays NaN if that parser refuses it
-    too (the JAX reader then drops the variant)."""
+    dosages on `device`, NaN = missing, written into `out` when it is
+    given; (k,) bool, whether each block decoded; how many went to the
+    host parser).  The blocks go end to end into one pinned buffer, which
+    K6 (layout 2) or K7 (layout 1) decodes after one upload; a block the
+    kernel does not take (status 1) is parsed on the host, and its row
+    stays NaN if that parser refuses it too (the JAX reader then drops the
+    variant)."""
     lengths = np.array([len(d) for d in datas], dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
     host = torch.empty(int(lengths.sum()), dtype=torch.uint8,
@@ -395,7 +395,8 @@ def _decode_blocks(datas: List[bytes], n_samples: int, layout: int, device):
     decode = bgen_decode_l1 if layout == 1 else bgen_decode_l2
     rows, status = decode(host.to(device, non_blocking=True),
                           torch.as_tensor(offsets).to(device, non_blocking=True),
-                          torch.as_tensor(lengths).to(device, non_blocking=True), n_samples)
+                          torch.as_tensor(lengths).to(device, non_blocking=True), n_samples,
+                          out=out)
     status = status.cpu().numpy()
     ok = status == 0
     parse = _parse_layout1_dosage if layout == 1 else _parse_layout2_dosage

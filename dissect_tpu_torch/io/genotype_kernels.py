@@ -196,12 +196,13 @@ def _byte_reader(buf):
     return at
 
 
-def plain_bgen_decode_l2(buf, offsets, lengths, n_samples: int):
+def plain_bgen_decode_l2(buf, offsets, lengths, n_samples: int, out=None):
     """The plain version of K6: the native layout-2 probability decode
     (dissect_tpu/native/bgen_decode.cpp:86-151, the float64 steps of
     dissect_tpu/io/bgen.py _parse_layout2_dosage) as torch ops over all
     blocks at once.  Returns ((V, N) float32 dosages, NaN = missing and
-    every entry of an unsupported row; (V,) int32 status)."""
+    every entry of an unsupported row, into `out` when it is given; (V,)
+    int32 status)."""
     _note_plain(plain_bgen_decode_l2, buf)
     dev, n = buf.device, n_samples
     off, ln = offsets.to(torch.int64), lengths.to(torch.int64)
@@ -235,17 +236,18 @@ def plain_bgen_decode_l2(buf, offsets, lengths, n_samples: int):
     p22 = (1.0 - v0 - v1).clamp(0.0, 1.0)
     d = torch.where(phased[:, None] != 0, (1.0 - v0) + (1.0 - v1), v1 + 2.0 * p22)
     d = torch.where(((ploidy & 0x80) != 0) | ~ok[:, None], float("nan"), d.to(torch.float32))
-    return d, (~ok).to(torch.int32)
+    return _into(out, d, buf.device), (~ok).to(torch.int32)
 
 
 plain_bgen_decode_l2.card_calls = 0
 
 
-def plain_bgen_decode_l1(buf, offsets, lengths, n_samples: int):
+def plain_bgen_decode_l1(buf, offsets, lengths, n_samples: int, out=None):
     """The plain version of K7: three little-endian uint16 per sample,
     ((p1 + 2 p2) / 32768) / psum in float64 with psum = (p0 + p1 + p2) /
     32768 (dissect_tpu/native/bgen_decode.cpp:154-183), NaN for an
-    all-zero triple and every entry of a block that is not 6 N bytes."""
+    all-zero triple and every entry of a block that is not 6 N bytes;
+    into `out` when it is given."""
     _note_plain(plain_bgen_decode_l1, buf)
     dev, n = buf.device, n_samples
     off, ln = offsets.to(torch.int64), lengths.to(torch.int64)
@@ -256,16 +258,32 @@ def plain_bgen_decode_l1(buf, offsets, lengths, n_samples: int):
     psum = (p[..., 0] + p[..., 1] + p[..., 2]).to(torch.float64) / 32768.0
     num = (p[..., 1].to(torch.float64) + 2.0 * p[..., 2].to(torch.float64)) / 32768.0
     d = torch.where((psum <= 0.0) | ~ok[:, None], float("nan"), (num / psum).to(torch.float32))
-    return d, (~ok).to(torch.int32)
+    return _into(out, d, buf.device), (~ok).to(torch.int32)
 
 
 plain_bgen_decode_l1.card_calls = 0
 
 
-def _bgen_launch(wrapper, plain, buf, offsets, lengths, n_samples):
+def _dosage_out(out, n_variants, n_samples, device):
+    """K6's and K7's destination: `out` checked as a contiguous (V, N)
+    float32 tensor on `device` (a row slice of a larger tensor is one), or
+    a new one."""
+    if out is None:
+        return torch.empty((n_variants, n_samples), dtype=torch.float32, device=device)
+    _check("out", out, torch.float32, 2, device)
+    if tuple(out.shape) != (n_variants, n_samples):
+        raise ValueError(f"out has shape {tuple(out.shape)}, expected {(n_variants, n_samples)}")
+    return out
+
+
+def _into(out, d, device):
+    return d if out is None else _dosage_out(out, d.shape[0], d.shape[1], device).copy_(d)
+
+
+def _bgen_launch(wrapper, plain, buf, offsets, lengths, n_samples, out):
     function = wrapper.__name__
     if buf.device.type == "cpu":
-        return plain(buf, offsets, lengths, n_samples)
+        return plain(buf, offsets, lengths, n_samples, out)
     if buf.device.type != "cuda":
         raise ValueError(f"no {function} kernel for device {buf.device}")
     _check("buf", buf, torch.uint8, 1, buf.device)
@@ -274,7 +292,7 @@ def _bgen_launch(wrapper, plain, buf, offsets, lengths, n_samples):
     n_variants = offsets.shape[0]
     if lengths.shape[0] != n_variants:
         raise ValueError(f"{n_variants} offsets but {lengths.shape[0]} lengths")
-    out = torch.empty((n_variants, n_samples), dtype=torch.float32, device=buf.device)
+    out = _dosage_out(out, n_variants, n_samples, buf.device)
     status = torch.empty((n_variants,), dtype=torch.int32, device=buf.device)
     if n_variants == 0:
         return out, status
@@ -289,26 +307,30 @@ def _bgen_launch(wrapper, plain, buf, offsets, lengths, n_samples):
     return out, status
 
 
-def bgen_decode_l2(buf, offsets, lengths, n_samples: int):
+def bgen_decode_l2(buf, offsets, lengths, n_samples: int, out=None):
     """K6: the decompressed layout-2 blocks buf[offsets[v] : offsets[v] +
     lengths[v]] (uint8 buffer, int64 offsets and lengths) -> ((V, N)
     float32 expected allele-2 dosages, NaN = missing; (V,) int32 status,
-    1 for a block K6 does not take: its row is all NaN).
+    1 for a block K6 does not take: its row is all NaN).  `out`, when
+    given, is the contiguous (V, N) float32 tensor the dosages are written
+    into (and which is returned), e.g. a row slice of a larger one.
 
     On the card this launches csrc/bgen_decode.cu (or raises); only
     tensors on the CPU take the plain version."""
-    return _bgen_launch(bgen_decode_l2, plain_bgen_decode_l2, buf, offsets, lengths, n_samples)
+    return _bgen_launch(bgen_decode_l2, plain_bgen_decode_l2, buf, offsets, lengths, n_samples,
+                        out)
 
 
 bgen_decode_l2.launches = 0
 
 
-def bgen_decode_l1(buf, offsets, lengths, n_samples: int):
+def bgen_decode_l1(buf, offsets, lengths, n_samples: int, out=None):
     """K7: as K6 for layout-1 (v1.1) blocks of 6 N bytes.
 
     On the card this launches csrc/bgen_decode.cu (or raises); only
     tensors on the CPU take the plain version."""
-    return _bgen_launch(bgen_decode_l1, plain_bgen_decode_l1, buf, offsets, lengths, n_samples)
+    return _bgen_launch(bgen_decode_l1, plain_bgen_decode_l1, buf, offsets, lengths, n_samples,
+                        out)
 
 
 bgen_decode_l1.launches = 0

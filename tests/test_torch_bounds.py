@@ -100,6 +100,22 @@ def test_k6_bound_is_the_batch_bytes():
     assert ms == pytest.approx(0.0214, abs=0.0001)
 
 
+@pytest.mark.parametrize("layout, v, n, want", [
+    (1, 1024, N, 0.0306),           # K7 on a batch of the BGEN path's size
+    (2, 64, 487_409, 0.0652),       # K6 at UK Biobank's sample count
+    (1, 64, 487_409, 0.0931),       # K7 there
+])
+def test_bgen_bounds_at_the_timed_shapes(layout, v, n, want):
+    """K6 and K7 at the other shapes chip_smoke.py times: the blocks' bytes
+    (10 + 3N a layout-2 block, 6N a layout-1 block) in, the float32 rows
+    out; at N = 487,409, 94 MB or 187 MB in and 125 MB out."""
+    block = 10 + 3 * n if layout == 2 else 6 * n
+    ms, by = cs.bgen_bound(v * block, v, n)
+    assert by == "bytes"
+    assert ms == pytest.approx((v * block + 16 * v + 4 * v * n + 4 * v) / 3.35e12 * 1e3)
+    assert ms == pytest.approx(want, abs=0.0001)
+
+
 @pytest.mark.parametrize(
     "n_bytes, fp32, int8, want",
     [

@@ -56,14 +56,18 @@ Phases, each of which stops the script on failure:
                sharing the card over gloo, after a one-rank NCCL group's
                broadcast, all_reduce and all_gather: `--make-grm`, `--reml
                --bfile --blue --indiv-blup` and `--make-grm --diagonalize
-               --store-both` on the first 4,096 individuals with `--mesh 2
-               --force-distributed`, and `--gwas --grm --parallel-gwas`,
+               --store-both` on all 10,000 individuals with `--mesh 2
+               --force-distributed` (the D&C eigensolver's operands
+               row-sharded, each rank's peak device memory inside it
+               recorded and bounded), and `--gwas --grm`, `--rgwas` and
+               `--gwas --groups --group-effects` with `--parallel-gwas`,
                held against K1's GRM, a single-device fit of the same GRM
-               (BLUEs and BLUPs too) and the 5b fit, the PLINK path's GWAS
-               and torch.linalg.eigh; K3 must launch on both ranks, and
-               rank 0's first pass is read by four routes (K3, K3 on the
-               single-device run's product shape, plain float32, plain
-               float64: `first_pass_reading`);
+               (BLUEs and BLUPs too) and the 5b fit, the PLINK path's GWAS,
+               the grouped phase's single-device runs (after 5f) and
+               torch.linalg.eigh; K3 must launch on both ranks, every rank
+               must shard its groups, and rank 0's first pass is read by
+               four routes (K3, K3 on the single-device run's product
+               shape, plain float32, plain float64: `first_pass_reading`);
   5c. pca      `--pca --bfile --num-eval 20` on the PLINK cohort (K1 builds
                the GRM in line; the randomized branch), each eigenvalue
                between 90% of and 1e-6 above a float64 eigh's, orthonormal
@@ -76,8 +80,9 @@ Phases, each of which stops the script on failure:
   5e. regional `--reml --groups` on four 2,000-SNP regions, one holding all
                causal SNPs: its Regional-GRM LRT p < 1e-10, the others' > 1e-6;
   5f. grouped  `--gwas --groups` on 5-SNP groups, OLS and under `--grm`, causal
-               groups enriched among the smallest GROUPPVs, and `--rgwas` on
-               100-SNP groups, its SNPs enriched for causal ones;
+               groups enriched among the smallest GROUPPVs, `--rgwas` on
+               100-SNP groups, its SNPs enriched for causal ones, and the
+               OLS step with `--group-effects`;
   5g. mp       `--mpresiduals` on four phenotype columns (h2 0.5, 0.3, 0.1, 0;
                K1 builds the GRM in line), the first column's residuals against
                s2_E V^-1 (y - X b) recomputed in float64, then `--mpgwas`: causal
@@ -1698,16 +1703,26 @@ def phase_regional(workdir, causal, counters, device):
     return launches, seconds, {"p_values": pvalues, "peak_device_gb": peak}
 
 
+def write_groups5(workdir):
+    """groups5.txt: the cohort's SNPs in groups of GROUP_SNPS consecutive
+    SNPs (written once; the mesh and grouped phases read it)."""
+    path = workdir / "groups5.txt"
+    if not path.exists():
+        with open(path, "w") as fh:
+            for i in range(N_SNPS):
+                fh.write(f"rs{i:06d} G{i // GROUP_SNPS}\n")
+    return path
+
+
 def phase_grouped(workdir, causal, counters, device):
     """`--gwas --groups` on groups of 5 consecutive SNPs, OLS and under
     `--grm` of the main path: in each, groups holding a causal SNP at least
     5x enriched among the 100 smallest GROUPPVs.  Then `--rgwas
     --rgwas-group-size 100 --significance-threshold 1e-5`: at least 5 SNPs
-    reported, at least 10x enriched for causal ones."""
-    names = [f"rs{i:06d}" for i in range(N_SNPS)]
-    with open(workdir / "groups5.txt", "w") as fh:
-        for i, nm in enumerate(names):
-            fh.write(f"{nm} G{i // GROUP_SNPS}\n")
+    reported, at least 10x enriched for causal ones.  Last, the OLS step
+    again with `--group-effects` (`grouped_effects`, the single-device
+    run of the mesh phase's step)."""
+    write_groups5(workdir)
     causal_groups = {f"G{int(nm[2:]) // GROUP_SNPS}" for nm in causal}
     base_rate = len(causal_groups) / (N_SNPS // GROUP_SNPS)
     seconds, summary, peaks = {}, {}, {}
@@ -1736,8 +1751,52 @@ def phase_grouped(workdir, causal, counters, device):
     check(len(significant) >= 5, "--rgwas reported fewer than 5 SNPs")
     check(enrichment >= 10.0, "--rgwas SNPs not enriched for causal ones")
     summary["rgwas"] = {"reported": len(significant), "causal": hits, "enrichment": enrichment}
+    _, _, secs, peaks["grouped_effects"] = _drive(
+        "grouped_effects", ["--gwas", "--groups", str(workdir / "groups5.txt"), "--group-effects"]
+        + _cohort_args(workdir) + ["--out", str(workdir / "grouped_effects")], counters, device)
+    seconds.update(secs)
     summary["peak_device_gb"] = peaks
     return seconds, summary
+
+
+def check_mesh_grouped(workdir):
+    """The mesh phase's `--rgwas` and `--gwas --groups --group-effects`
+    under `--parallel-gwas` against the same argv on one device
+    (phase_grouped's `rgwas` and `grouped_effects`): the reported SNPs
+    equal as a set; .multi.gwas.snps (groups, SNPs and alleles equal) and
+    the .effects matrix by the float32 rule of GOLDEN_F32_RTOL."""
+    from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
+
+    reported = [set(open(workdir / f"{tag}.rgwas").read().split()[1:])
+                for tag in ("mesh_rgwas", "rgwas")]
+    log(f"mesh rgwas: {len(reported[0])} SNPs reported, single device {len(reported[1])}")
+    check(reported[0] == reported[1], "mesh --rgwas reports other SNPs than one device")
+
+    def bad(ours, ref):
+        col_max = np.abs(ref).max(axis=0)
+        return int((np.abs(ours - ref) > GOLDEN_F32_RTOL * np.abs(ref)
+                    + GOLDEN_F32_RTOL * col_max).sum())
+
+    def rel(ours, ref):
+        return float(np.max(np.abs(ours - ref) / (np.abs(ref) + 1e-300)))
+
+    paths = [workdir / f"{tag}.multi.gwas.snps" for tag in ("mesh_grouped_effects", "grouped_effects")]
+    labels = [np.loadtxt(p, skiprows=1, usecols=(0, 1, 2), dtype=str) for p in paths]
+    values = [np.loadtxt(p, skiprows=1, usecols=range(3, 10)) for p in paths]
+    effects = [LabeledMatrix.load(str(workdir / f"{tag}.effects"))
+               for tag in ("mesh_grouped_effects", "grouped_effects")]
+    out = {"rgwas_reported": len(reported[0]), "snps_rows": len(values[0]),
+           "snps_outside_f32_rule": bad(*values), "snps_max_rel_diff": rel(*values),
+           "effects_shape": list(effects[0].values.shape),
+           "effects_outside_f32_rule": bad(effects[0].values, effects[1].values),
+           "effects_max_abs_diff": float(np.max(np.abs(effects[0].values - effects[1].values)))}
+    log("mesh grouped against one device: " + json.dumps(out))
+    check(np.array_equal(*labels), "mesh --group-effects: groups, SNPs or alleles differ")
+    check(out["snps_outside_f32_rule"] == 0, "mesh --group-effects .multi.gwas.snps differs")
+    check(effects[0].row_labels == effects[1].row_labels
+          and effects[0].col_labels == effects[1].col_labels, "mesh .effects labels differ")
+    check(out["effects_outside_f32_rule"] == 0, "mesh .effects differ from one device's")
+    return out
 
 
 # ---------------------------------------------------------------- phase 5g --
@@ -2101,10 +2160,16 @@ MESH_REML_RTOL = 1e-8
 # GRMs differ by float32 summation order (within K1_REL_TOL of the scale,
 # about 1e-7 entry by entry).
 MESH_VS_K1_REML_RTOL = 1e-6
-# The D&C eigensolver step's individuals (the first of the cohort): with
-# two gloo ranks on one card it takes about 7 s at N = 4,096, and its
-# products and gloo traffic grow as N^3, about 100 s at 10,000.
-MESH_EIGH_N = 4_096
+# The D&C eigensolver step's individuals (the first of the cohort): the
+# whole cohort, its operands row-sharded over the ranks.
+MESH_EIGH_N = N_INDIVIDUALS
+# The whole-operand solver's per-rank peak in planes of N^2 * 8 bytes,
+# measured by eigh_memory.py at N = 10,000 on two ranks sharing an NVIDIA
+# H100 80GB HBM3 (700 W): the solver before its operands were row-sharded,
+# the whole float32 matrix on each rank at entry (PERF.md).  The
+# row-sharded solver's peak must stay within 1/MESH_RANKS of it plus two
+# planes.
+WHOLE_OPERAND_EIGH_PLANES = 10.4153856
 # SNP rows per block of the first-pass reading's plain routes (float64
 # temporaries of 0.4 GB each at n = 10,000)
 READING_ROWS = 5_000
@@ -2114,10 +2179,13 @@ def mesh_worker(plan_path):
     """One torchrun rank of the mesh phase (`chip_smoke.py --mesh-worker
     plan.json`): bring up the run's process group (gloo: the ranks share
     cuda:0), hold broadcast, all_reduce and all_gather on CUDA tensors,
-    then run each step's argv through the CLI's main() with every launch
+    and reduce_scatter_rows, then run each step's argv
+    through the CLI's main() with every launch
     counter zeroed just before and read just after, and write this rank's
     record (collectives, per-step seconds, dispatcher phases, launches,
-    K3 launches by M, the REML result) to <plan>.rank<r>.json.  Ends with
+    K3 launches by M, the REML result, the lines this rank would log that
+    say what it sharded, the eigensolver's own peak device memory) to
+    <plan>.rank<r>.json.  Ends with
     one row-sharded SPD inverse at the REML step's padded N, each of its
     three stages timed, then rank 0's `first_pass_reading`."""
     sys.path.insert(0, str(REPO))
@@ -2147,6 +2215,15 @@ def mesh_worker(plan_path):
     for op, val in got.items():
         record["collectives"][op] = {"device": str(val.device),
                                      "ok": val.cpu().tolist() == want[op]}
+    # the D&C eigensolver's Gram products: gloo's reduce-scatter of CUDA tensors
+    rows = ctx.row_bounds(3)
+    scattered = ctx.reduce_scatter_rows(
+        [torch.full((hi - lo, 2), float(ctx.rank + 1), dtype=torch.float64, device=device)
+         for lo, hi in rows])
+    lo, hi = rows[ctx.rank]
+    record["collectives"]["reduce_scatter_rows"] = {
+        "device": str(scattered.device),
+        "ok": scattered.cpu().tolist() == [[3.0, 3.0]] * (hi - lo)}
     counters = kernel_counters()
     # the gwas step's refit inputs on this rank, for first_pass_reading
     import dissect_tpu_torch.analysis.dispatcher as dispatcher_module
@@ -2159,8 +2236,33 @@ def mesh_worker(plan_path):
         return refit(genotypes, y, x, lam, u, null_variances, **kw)
 
     dispatcher_module.mlm_gwas_ml_refit = recording_refit
+    # what every rank would log (only rank 0 writes the log), and the
+    # device memory inside the D&C eigensolver, its peak read apart
+    from dissect_tpu_torch.linalg import dc_eigen
+    from dissect_tpu_torch.runtime.log import Logger
+
+    lines, interior = [], {}
+    logger_message, solver = Logger.message, dc_eigen.distributed_eigh
+
+    def message(self, *parts):
+        lines.append(" ".join(str(p) for p in parts))
+        logger_message(self, *parts)
+
+    def measured_solver(*args, **kw):
+        torch.cuda.synchronize(device)
+        interior.update(step_peak=torch.cuda.max_memory_allocated(device),
+                        at_entry=torch.cuda.memory_allocated(device))
+        torch.cuda.reset_peak_memory_stats(device)
+        out = solver(*args, **kw)
+        torch.cuda.synchronize(device)
+        interior["peak"] = torch.cuda.max_memory_allocated(device)
+        return out
+
+    Logger.message, dc_eigen.distributed_eigh = message, measured_solver
     for step in plan["steps"]:
         zero_counters(counters)
+        lines.clear()
+        interior.clear()
         torch.cuda.reset_peak_memory_stats(device)
         t0 = time.monotonic()
         out = cli_main(step["argv"])
@@ -2169,11 +2271,18 @@ def mesh_worker(plan_path):
                "launches": {name: fn.launches for name, fn in counters.items()},
                "decode": decode_record(),
                "k3_by_rows": {str(k): v for k, v in fused_refit_moments.launches_by_rows.items()},
-               "peak_device_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+               "peak_device_gb": max(torch.cuda.max_memory_allocated(device),
+                                     interior.get("step_peak", 0)) / 1e9,
+               "sharded_lines": [line for line in lines if "sharded over" in line]}
+        if interior:
+            rec["solver_memory_gb"] = {"peak": interior["peak"] / 1e9,
+                                       "at_entry": interior["at_entry"] / 1e9}
         if step["name"] == "reml":
             rec["reml"] = _reml_record(out)
         record["steps"][step["name"]] = rec
+        del out
     dispatcher_module.mlm_gwas_ml_refit = refit
+    Logger.message, dc_eigen.distributed_eigh = logger_message, solver
     # one row-sharded inverse of an SPD matrix (2 I + U U^T / n) at the
     # REML step's padded N
     n = plan["inverse_n"]
@@ -2376,9 +2485,13 @@ def phase_mesh(workdir, reml_summary, counters, device):
     DISSECT_TPU_TORCH_DEVICE=cuda:0): a one-rank NCCL group first, then
     in one launch `--make-grm --mesh 2 --force-distributed` (the GRM
     row-sharded), `--reml --bfile --blue --indiv-blup` (the row-sharded
-    float64 engine), `--gwas --grm --parallel-gwas` (K3 on each rank's
-    SNPs) and `--make-grm --diagonalize --store-both` on the first
-    MESH_EIGH_N individuals (the D&C eigensolver).  Checks:
+    float64 engine), `--make-grm --diagonalize --store-both` on the
+    first MESH_EIGH_N individuals (the D&C eigensolver, its operands
+    row-sharded from the GRM's row blocks to the eigenvectors), `--gwas
+    --grm --parallel-gwas` (K3 on each rank's SNPs), and `--rgwas` and
+    `--gwas --groups --group-effects` under `--parallel-gwas` (each rank
+    fits its share of every size bucket; `check_mesh_grouped` holds them
+    against the single-device runs of phase_grouped).  Checks:
     the GRM against the single-device K1 GRM within K1_REL_TOL of its
     scale and the counts exactly; the REML variances, logL, BLUEs and
     BLUPs against a single-device float64 fit of the mesh grm step's GRM
@@ -2388,8 +2501,11 @@ def phase_mesh(workdir, reml_summary, counters, device):
     by the float32 rule on the SNPs both fitted, the unfitted counts
     within 20% or 10 SNPs of each other, K3 launched on both ranks, and
     rank 0's first-pass reading (`first_pass_reading`) flagging by K3 as
-    many SNPs as the rank retried; the eigenpairs as `_eigen_check`
-    says."""
+    many SNPs as the rank retried; every rank's log lines of the grouped
+    steps saying the groups were sharded; the eigenpairs as
+    `_eigen_check` says, and each rank's peak device memory inside the
+    eigensolver at most WHOLE_OPERAND_EIGH_PLANES / MESH_RANKS + 2 planes
+    of N^2 * 8 bytes."""
     from dissect_tpu_torch.io.grm_io import read_grm
     from dissect_tpu_torch.reml.distributed_engine import pick_block
 
@@ -2398,15 +2514,21 @@ def phase_mesh(workdir, reml_summary, counters, device):
     nccl = nccl_check(device)
     seconds = {"mesh_nccl": time.monotonic() - t0}
     cohort = _cohort_args(workdir)
+    # the eigh step before the GWAS steps: the worker holds the gwas step's
+    # refit inputs for first_pass_reading, which would count in its memory
     steps = [
         ("grm", ["--make-grm"] + cohort[:2] + ["--mesh", "2", "--force-distributed"]),
         ("reml", ["--reml"] + cohort + ["--blue", "--indiv-blup", "--mesh", "2",
                                         "--force-distributed"]),
-        ("gwas", ["--gwas", "--grm", str(workdir / "grm")] + cohort
-         + ["--mesh", "2", "--parallel-gwas"]),
         ("eigh", ["--make-grm", "--diagonalize", "--store-both", "--keep",
                   str(workdir / "mesh_keep.txt")] + cohort[:2]
          + ["--mesh", "2", "--force-distributed"]),
+        ("gwas", ["--gwas", "--grm", str(workdir / "grm")] + cohort
+         + ["--mesh", "2", "--parallel-gwas"]),
+        ("rgwas", ["--rgwas", "--rgwas-group-size", "100", "--significance-threshold", "1e-5"]
+         + cohort + ["--mesh", "2", "--parallel-gwas"]),
+        ("grouped_effects", ["--gwas", "--groups", str(write_groups5(workdir)), "--group-effects"]
+         + cohort + ["--mesh", "2", "--parallel-gwas"]),
     ]
     with open(workdir / "cohort.fam") as src, open(workdir / "mesh_keep.txt", "w") as dst:
         for _, line in zip(range(MESH_EIGH_N), src):
@@ -2522,11 +2644,33 @@ def phase_mesh(workdir, reml_summary, counters, device):
     check(reading["flagged"]["k3"] == retry_rows[0],
           "the first-pass reading's K3 route does not flag the SNPs rank 0 retried")
 
-    # 4. the D&C eigensolver against torch.linalg.eigh of the same GRM
+    # 4. every rank fitted its share of the groups in the grouped steps
+    for name in ("rgwas", "grouped_effects"):
+        for r, st in enumerate(steps_by_rank):
+            check(any(f"groups sharded over {MESH_RANKS} ranks" in line
+                      for line in st[name]["sharded_lines"]),
+                  f"mesh {name}: rank {r} did not shard its groups: {st[name]['sharded_lines']}")
+
+    # 5. the D&C eigensolver against torch.linalg.eigh of the same GRM, and
+    # each rank's peak device memory inside it and over the step
     diag = read_grm(str(workdir / "mesh_eigh"))
     kernel = read_grm(str(workdir / "mesh_eigh.nondiagonal"))["kernel"]
     eig = _eigen_check(kernel, diag["eigenvalues"], diag["eigenvectors"], device)
     del diag, kernel
+    plane_gb = MESH_EIGH_N ** 2 * 8 / 1e9
+    eig_memory = {
+        "plane_gb": plane_gb,
+        "solver_peak_gb": [st["eigh"]["solver_memory_gb"]["peak"] for st in steps_by_rank],
+        "solver_at_entry_gb": [st["eigh"]["solver_memory_gb"]["at_entry"] for st in steps_by_rank],
+        "step_peak_gb": [st["eigh"]["peak_device_gb"] for st in steps_by_rank]}
+    for key in ("solver_peak", "solver_at_entry", "step_peak"):
+        eig_memory[f"{key}_planes"] = [gb / plane_gb for gb in eig_memory[f"{key}_gb"]]
+    limit = WHOLE_OPERAND_EIGH_PLANES / MESH_RANKS + 2
+    log(f"mesh eigh at N = {MESH_EIGH_N}: solver peak {eig_memory['solver_peak_planes']} planes "
+        f"of {plane_gb:.3f} GB per rank (limit {limit:.2f}), step peak "
+        f"{eig_memory['step_peak_planes']}")
+    check(max(eig_memory["solver_peak_planes"]) <= limit,
+          "the D&C eigensolver's per-rank peak is not about 1/P of the whole-operand solver's")
     summary = {
         "nccl_one_rank": nccl,
         "collectives_gloo_cuda": ranks[0]["collectives"],
@@ -2543,8 +2687,10 @@ def phase_mesh(workdir, reml_summary, counters, device):
                  "k3_launches_by_rank": k3_ranks, "retry_rows_by_rank": retry_rows,
                  "k3_by_rows_by_rank": [st["gwas"]["k3_by_rows"] for st in steps_by_rank],
                  "first_pass_reading": reading},
-        "eigh": {**eig,
+        "eigh": {**eig, **eig_memory,
                  "seconds": steps_by_rank[0]["eigh"]["phases"].get("DiagonalizeGRM")},
+        "grouped_seconds": {name: [st[name]["phases"].get("GWAS") for st in steps_by_rank]
+                            for name in ("rgwas", "grouped_effects")},
         "peak_device_gb_by_step": {n: [st[n]["peak_device_gb"] for st in steps_by_rank]
                                    for n in steps_by_rank[0]},
         "gloo_bytes_per_cholesky_inverse": inverse_collective_bytes(
@@ -2628,6 +2774,7 @@ def main():
         seconds.update(path_seconds)
         path_seconds, summary["grouped"] = phase_grouped(plink_dir, causal, counters, device)
         seconds.update(path_seconds)
+        summary["mesh"]["grouped"] = check_mesh_grouped(plink_dir)
         mp_launches, path_seconds, summary["mp"] = phase_mp(
             plink_dir, causal, counters, summary["plink"]["null_variances"], device)
         seconds.update(path_seconds)
@@ -2686,7 +2833,8 @@ def main():
                    "mesh": mesh_launches[entry["name"]],
                    "bgen_l1": l1_launches[entry["name"]]}
         # the steps whose phases return no launches: from their records
-        for tag in ("grouped_ols", "grouped_grm", "rgwas", "mpgwas", "simulate", "predict"):
+        for tag in ("grouped_ols", "grouped_grm", "rgwas", "grouped_effects", "mpgwas",
+                    "simulate", "predict"):
             by_path[tag] = STEP_LAUNCHES[tag][entry["name"]]
         entry["launches"] = sum(by_path.values())
         entry["launches_by_path"] = by_path

@@ -23,6 +23,13 @@ Here the raw dosages are decoded on the device once (`CenteredRows`), each batch
 groups is centred on the device, rotated there into the covariance
 eigenbasis for the ML branch, and a bucket runs in batches of groups
 whose size bounds the device memory.  The numbers are the same.
+
+With a MeshContext (`mesh_ctx`, --parallel-gwas) each rank filters and
+fits a contiguous share of every size bucket's groups, as JAX shards a
+bucket's group axis over the mesh (dissect_tpu/gwas/grouped.py:171-181),
+and the per-group results are all-gathered (the effects as float64 row
+blocks; the gathers are timed as the GatherGroups phase), so every rank
+returns the single-device results in their order.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from dissect_tpu_torch.gwas.mlm import _host, _ml_fit_diagonal
 from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.linalg.qr import dependent_columns_batched
 from dissect_tpu_torch.runtime.stats import chi2_sf, f_sf, t_sf
+from dissect_tpu_torch.runtime.timers import timers
 
 # bytes of one batch's (groups, n, covariates + SNPs) float64 design;
 # the fits hold a few such tensors at once
@@ -102,6 +110,26 @@ def _as_rows(genotypes) -> CenteredRows:
     return CenteredRows(g.to(torch.float64))
 
 
+def _share(items: Sequence, ctx) -> Sequence:
+    """This rank's contiguous share of `items` (all of them without a
+    mesh): ceil-sized shares, the last ranks' short or empty."""
+    if ctx is None:
+        return items
+    lo, hi = ctx.local_rows(len(items))
+    return items[lo:hi]
+
+
+def _joined(local: dict, ctx) -> dict:
+    """Every rank's entries of `local`, all-gathered and merged."""
+    if ctx is None:
+        return local
+    merged: dict = {}
+    with timers.phase("GatherGroups"):
+        for part in ctx.all_gather_object(local):
+            merged.update(part)
+    return merged
+
+
 def _batches(items: Sequence, n: int, width: int, group_batch: Optional[int]):
     """Consecutive slices of `items`, each small enough that its
     (groups, n, width) float64 design stays under GROUP_BATCH_BYTES."""
@@ -136,6 +164,7 @@ def grouped_gwas(
     covariance=None,
     ml_iterations: int = 15,
     group_batch: Optional[int] = None,
+    mesh_ctx=None,
 ) -> Tuple[Dict[str, GroupResult], Optional[LabeledMatrix]]:
     """Joint fit per SNP group, batched by group size.
 
@@ -146,9 +175,13 @@ def grouped_gwas(
     the chi2 likelihood-ratio GROUPPV against the covariates-only ML fit
     (computeGroupSignificance's MLModelType branch, gwas.cpp:940-957).
     `group_batch` caps the groups solved at once (default: by
-    GROUP_BATCH_BYTES); the answers do not depend on it.
-    `significance_threshold` and `correlation_threshold` are accepted for
-    the JAX signature and unused, as there."""
+    GROUP_BATCH_BYTES); the answers do not depend on it.  With
+    `mesh_ctx` each rank filters and fits its share of every size
+    bucket (`_share`) and every rank returns all groups' results and
+    effects: the results as pickles, the effects as one float64 gather
+    of each bucket's rows.  `significance_threshold` and
+    `correlation_threshold` are accepted for the JAX signature and
+    unused, as there."""
     rows = _as_rows(genotypes)
     device = rows.device
     put = lambda a: torch.as_tensor(a).to(device=device, dtype=torch.float64)
@@ -188,10 +221,11 @@ def grouped_gwas(
     for group, snps in grouping.items():
         by_size.setdefault(len(snps), []).append(group)
     for size, group_list in by_size.items():
-        for batch in _batches(group_list, n, c + size, group_batch):
+        for batch in _batches(_share(group_list, mesh_ctx), n, c + size, group_batch):
             gs = rows(index(batch, lambda g: grouping[g]))
             for group, deps in zip(batch, dependent_columns_batched(design(gs, xt))):
                 deps_of[group] = deps
+    deps_of = _joined(deps_of, mesh_ctx)
     filtered: "OrderedDict[str, Tuple[List[str], List[str]]]" = OrderedDict()
     for group, snps in grouping.items():
         deps = {int(d) - c for d in deps_of[group] if d >= c}
@@ -211,7 +245,8 @@ def grouped_gwas(
         p_coef = c + size
         df = n - p_coef
         h = p_coef - c
-        for batch in _batches(group_list, n, p_coef, group_batch):
+        shared_effects = []  # with a mesh: this rank's effects rows, on the device
+        for batch in _batches(_share(group_list, mesh_ctx), n, p_coef, group_batch):
             gs = rows(index(batch, lambda g: filtered[g][0]))  # (B, s, n)
             if covariance is not None:
                 bs, a_inv_diags, _, logls, _ = _ml_fit_diagonal(
@@ -228,7 +263,11 @@ def grouped_gwas(
                 del xg
             effects_t = torch.einsum("bsn,bs->bn", gs, bs[:, c:])
             group_vars = _host(torch.var(effects_t, dim=1, correction=1))
-            group_effects = _host(effects_t) if compute_effects else None
+            group_effects = None
+            if compute_effects and mesh_ctx is not None:
+                shared_effects.append(effects_t)
+            elif compute_effects:
+                group_effects = _host(effects_t)
             bs, a_inv_diags = _host(bs), _host(a_inv_diags)
             # the batch's tests at once, each group's as the JAX package
             # forms it one group at a time (grouped.py:208-238)
@@ -264,16 +303,29 @@ def grouped_gwas(
                     dropped_snps=dropped,
                     success=bool(ok[bi]),
                 )
-                if compute_effects:
+                if group_effects is not None:
                     effects_cols[group] = group_effects[bi]
+        if compute_effects and mesh_ctx is not None:
+            # the bucket's effects rows of every rank's share, in bucket
+            # order: one float64 gather of (groups, n)
+            local = torch.cat(shared_effects) if shared_effects else yt.new_zeros((0, n))
+            with timers.phase("GatherGroups"):
+                gathered = _host(mesh_ctx.all_gather_rows(local, len(group_list)))
+            effects_cols.update(zip(group_list, gathered))
 
+    if mesh_ctx is not None:
+        merged = _joined(results, mesh_ctx)
+        results = {g: merged[g] for _, group_list in sorted(buckets.items()) for g in group_list}
     effects = None
     if compute_effects and effects_cols:
         cols = [g for g in grouping if g in effects_cols]
+        # (groups, n) rows viewed transposed: the column-major layout that
+        # LabeledMatrix.save writes and load returns, so neither copies
+        # the matrix through a transpose
         effects = LabeledMatrix(
             [f"ind_{i}" for i in range(n)],
             cols,
-            np.column_stack([effects_cols[g] for g in cols]),
+            np.stack([effects_cols[g] for g in cols]).T,
         )
     return results, effects
 
@@ -318,10 +370,12 @@ def flag_correlated_in_groups(
     results: Dict[str, GroupResult],
     threshold: float = 0.99,
     group_batch: Optional[int] = None,
+    mesh_ctx=None,
 ) -> Set[str]:
     """`flag_correlated_snps` over every group's kept SNPs and their
     p-values, the correlations of a batch of equal-size groups formed at
-    once on the device."""
+    once on the device.  With `mesh_ctx` each rank flags its share of
+    each size (`_share`) and every rank returns the joined set."""
     rows = _as_rows(genotypes)
     name_to_idx = {nm: i for i, nm in enumerate(snp_names)}
     by_size: Dict[int, List[GroupResult]] = {}
@@ -329,7 +383,7 @@ def flag_correlated_in_groups(
         by_size.setdefault(len(res.snp_names), []).append(res)
     flagged: Set[str] = set()
     for size, group_results in by_size.items():
-        for batch in _batches(group_results, rows.n_individuals, size, group_batch):
+        for batch in _batches(_share(group_results, mesh_ctx), rows.n_individuals, size, group_batch):
             idx = torch.as_tensor(
                 [[name_to_idx[s] for s in r.snp_names] for r in batch], device=rows.device
             )
@@ -337,6 +391,8 @@ def flag_correlated_in_groups(
             for res, cm in zip(batch, corr):
                 c = len(res.beta) - len(res.snp_names)
                 flagged.update(flag_from_correlations(cm, res.snp_names, res.p[c:], threshold))
+    if mesh_ctx is not None:
+        flagged = set().union(*mesh_ctx.all_gather_object(flagged))
     return flagged
 
 
@@ -352,10 +408,13 @@ def recursive_gwas(
     max_fit_ratio: Optional[float] = None,
     covariance=None,
     group_batch: Optional[int] = None,
+    mesh_ctx=None,
 ) -> Tuple[List[str], Dict[str, GroupResult]]:
     """Iterative grouped fit -> keep significant -> regroup
     (computeRecursiveGWAS, gwas.cpp:239-284).  Returns the fixed-point
-    significant SNP set and the final group results.
+    significant SNP set and the final group results.  `mesh_ctx` goes to
+    every pass's `grouped_gwas`, whose results every rank receives
+    whole, so every rank takes the same regrouping decisions.
 
     iteration_thresholds: per-iteration keep thresholds (the last one
     repeats; --rgwas-thresholds, options.cpp:803-806); the final
@@ -379,6 +438,7 @@ def recursive_gwas(
             significance_threshold=significance_threshold,
             covariance=covariance,
             group_batch=group_batch,
+            mesh_ctx=mesh_ctx,
         )
         last_results = results
         kept: List[Tuple[float, str]] = []

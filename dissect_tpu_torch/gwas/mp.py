@@ -71,7 +71,7 @@ def compute_mp_residuals(
 
     with timers.phase("DiagonalizeGRM"):
         kern = kernel.filter_individuals(common).diagonalize(mesh=mesh)
-    u = kern.eigenvectors.to(torch.float64)
+    u = kern.whole().eigenvectors.to(torch.float64)
     lam = kern.eigenvalues.to(torch.float64)
     put = lambda a: torch.as_tensor(a, dtype=torch.float64, device=u.device)
     x_rot = u.T @ put(covariate.filter_individuals(common).matrix)

@@ -38,6 +38,13 @@ lauum over ONE (n_loc, N) buffer.  Everything runs in float64 (the
 card's float64 tensor cores; the JAX package's TPU workarounds — the
 fused single-loop form and the solve-against-identity branch for small
 N — do not apply to a Python loop of eager products).
+
+The products of row-sharded operands whose rows lie as
+`MeshContext.row_bounds` places them (even or not) broadcast one rank's
+row block at a time (`MeshContext.row_blocks`): A B (`sharded_matmul`),
+A B^T (`sharded_matmul_t`) and (X + X^T)/2 (`symmetrized`); the Gram product
+A^T B ends row-sharded through one reduce-scatter (`gram_rows`).  No
+rank holds more than its own rows and one other rank's block.
 """
 
 from __future__ import annotations
@@ -302,13 +309,41 @@ def spd_solve_cyclic(
 
 
 def sharded_matmul(a_loc: torch.Tensor, b_loc: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
-    """Local rows of A @ B for row-sharded A (n_loc, K) and B (K / W
-    rows per rank): each rank's block of B is broadcast in turn and
-    multiplied into the matching column block of A, so no rank ever
-    holds more than one block of B (SUMMA over the row axis)."""
-    kb = b_loc.shape[0]
-    out = torch.zeros((a_loc.shape[0], b_loc.shape[1]), dtype=a_loc.dtype, device=a_loc.device)
-    for r in range(ctx.world):
-        blk = b_loc if ctx.world == 1 else (b_loc.clone() if r == ctx.rank else torch.empty_like(b_loc))
-        out.addmm_(a_loc[:, r * kb : (r + 1) * kb], ctx.broadcast(blk, r))
+    """Local rows of A @ B for row-sharded A (n_loc, K) and B (K, n_b),
+    B's rows placed by `ctx.row_bounds(K)` (equal blocks when the world
+    divides K, else the last blocks short): each rank's block of B is
+    broadcast in turn and multiplied into the matching column block of
+    A, so no rank ever holds more than one block of B (SUMMA over the
+    row axis)."""
+    out = a_loc.new_zeros((a_loc.shape[0], b_loc.shape[1]))
+    for lo, hi, blk in ctx.row_blocks(b_loc, a_loc.shape[1]):
+        out.addmm_(a_loc[:, lo:hi], blk)
     return out
+
+
+def sharded_matmul_t(a_loc: torch.Tensor, b_loc: torch.Tensor, n_b: int, ctx: MeshContext) -> torch.Tensor:
+    """Local rows of A @ B^T for row-sharded A (n_loc, K) and B (n_b, K):
+    B's blocks broadcast in turn, each giving a column block of the
+    result."""
+    out = a_loc.new_empty((a_loc.shape[0], n_b))
+    for lo, hi, blk in ctx.row_blocks(b_loc, n_b):
+        out[:, lo:hi] = a_loc @ blk.T
+    return out
+
+
+def symmetrized(x_loc: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Local rows of (X + X^T) / 2 for a row-sharded square X: the rows
+    of X^T are X's columns, taken from each rank's block in turn."""
+    r0, r1 = ctx.local_rows(x_loc.shape[1])
+    out = 0.5 * x_loc
+    for lo, hi, blk in ctx.row_blocks(x_loc, x_loc.shape[1]):
+        out[:, lo:hi].add_(blk[:, r0:r1].T, alpha=0.5)
+    return out
+
+
+def gram_rows(a_loc: torch.Tensor, b_loc: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """Local rows (`ctx.local_rows(k)`) of A^T B for row-sharded A (m, k)
+    and B (m, j): each rank forms its term of every rank's rows, and one
+    reduce-scatter sums them, so no rank holds the whole k x j product."""
+    k = a_loc.shape[1]
+    return ctx.reduce_scatter_rows([a_loc[:, lo:hi].T @ b_loc for lo, hi in ctx.row_bounds(k)])

@@ -55,7 +55,8 @@ class Kernel:
     replace the dense form (diagonalizeKernel, kernel.cpp:2106-2141).
     A multi-rank GRM holds both as RowShards (`sharded`): the
     transforms below keep them row-sharded where they can, and `dense`
-    and `whole` gather them.
+    and `whole` gather them.  A kernel diagonalized on more than one
+    rank holds its eigenvectors as RowShards too.
     """
 
     name: str
@@ -67,7 +68,7 @@ class Kernel:
     normalized: bool = True
     diagonalized: bool = False
     eigenvalues: Optional[torch.Tensor] = None
-    eigenvectors: Optional[torch.Tensor] = None
+    eigenvectors: Optional[Union[torch.Tensor, RowShards]] = None
 
     @property
     def n(self) -> int:
@@ -85,16 +86,18 @@ class Kernel:
             return self.matrix.whole()
         if not self.diagonalized:
             return self.matrix
-        u, w = self.eigenvectors, self.eigenvalues
+        u, w = self.whole().eigenvectors, self.eigenvalues
         return (u * w[None, :]) @ u.T
 
     def whole(self) -> "Kernel":
-        """This kernel with its matrix and counts whole on every rank."""
-        if not self.sharded:
+        """This kernel with its matrix, counts and eigenvectors whole on
+        every rank."""
+        gather = lambda t: t.whole() if isinstance(t, RowShards) else t
+        if not (self.sharded or isinstance(self.eigenvectors, RowShards)):
             return self
         return dataclasses.replace(
-            self, matrix=self.matrix.whole(),
-            counts=None if self.counts is None else self.counts.whole(),
+            self, matrix=gather(self.matrix), counts=gather(self.counts),
+            eigenvectors=gather(self.eigenvectors),
         )
 
     # --- transforms ----------------------------------------------------------
@@ -140,14 +143,16 @@ class Kernel:
 
         With a MeshContext of more than one rank, the spectral
         divide-and-conquer solver (linalg/dc_eigen.py) splits the O(N^3)
-        work over the ranks; a one-rank mesh keeps the local solve, as
-        in dissect_tpu/model/kernels.py:110-130."""
+        work over the ranks, taking a row-sharded kernel's rows as they
+        are and giving the eigenvectors back as RowShards; a one-rank
+        mesh keeps the local solve, as in
+        dissect_tpu/model/kernels.py:110-130."""
         if self.diagonalized:
             return self
         if mesh is not None and mesh.world > 1:
             from dissect_tpu_torch.linalg.dc_eigen import distributed_eigh
 
-            w, u = distributed_eigh(self.dense(), ctx=mesh)
+            w, u = distributed_eigh(self.matrix if self.sharded else self.dense(), ctx=mesh)
         else:
             w, u = eigh_full(self.dense())
         return Kernel(

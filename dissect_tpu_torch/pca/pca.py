@@ -7,7 +7,9 @@ descending order.  Port of dissect_tpu/pca/pca.py.  Both solves run in
 float64 on the kernel's device (linalg/eigen.py); for k << N the
 randomized subspace iteration avoids the full O(N^3) solve, and with a
 mesh of more than one rank the full solve is the divide-and-conquer
-`distributed_eigh` (linalg/dc_eigen.py).
+`distributed_eigh` (linalg/dc_eigen.py) on the kernel's rows, whose
+row-sharded eigenvectors' top k columns are gathered to rank 0's host
+one row block at a time.
 """
 
 from __future__ import annotations
@@ -16,17 +18,21 @@ import dataclasses
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from dissect_tpu_torch.linalg.eigen import eigh_full, eigh_topk
 from dissect_tpu_torch.model.kernels import Kernel
 from dissect_tpu_torch.runtime.log import output_open
+from dissect_tpu_torch.runtime.mesh import RowShards
 
 
 @dataclasses.dataclass
 class PCA:
     individual_keys: List[str]
     eigenvalues: np.ndarray  # (k,) descending
-    eigenvectors: np.ndarray  # (n, k) columns matching eigenvalues
+    # (n, k) columns matching eigenvalues; None on a mesh rank other than
+    # rank 0, which alone writes
+    eigenvectors: Optional[np.ndarray]
     # the FULL spectrum, descending, when a full solve ran (the
     # reference always has it — pdsyev is full; None for randomized top-k)
     all_eigenvalues: Optional[np.ndarray] = None
@@ -36,6 +42,8 @@ class PCA:
         formats (pca.cpp:85-101): eigenvalues one per line, descending, no
         header — all of them when the full spectrum was computed;
         eigenvectors as 'FID IID v1 v2 ...'."""
+        if self.eigenvectors is None:
+            return
         evals = self.all_eigenvalues if self.all_eigenvalues is not None else self.eigenvalues
         with output_open(prefix + ".pca.eigenvalues", "w") as fh:
             for w in evals:
@@ -45,6 +53,15 @@ class PCA:
                 fid, iid = key.split("@", 1)
                 row = " ".join(f"{v:.{precision}g}" for v in self.eigenvectors[i])
                 fh.write(f"{fid} {iid} {row}\n")
+
+
+def _columns_on_host(v, cols: np.ndarray) -> Optional[np.ndarray]:
+    """Columns `cols` of the eigenvectors as a host array; row-sharded
+    ones are gathered to rank 0's host (None on the other ranks)."""
+    if isinstance(v, RowShards):
+        index = torch.as_tensor(cols.copy(), device=v.device)
+        return RowShards(v.local[:, index], v.n, v.ctx).to_root_host()
+    return v.cpu().numpy()[:, cols]
 
 
 def compute_pca(
@@ -62,12 +79,11 @@ def compute_pca(
     keys = list(kernel.individual_keys)
     if kernel.diagonalized:
         w = kernel.eigenvalues.cpu().numpy()
-        v = kernel.eigenvectors.cpu().numpy()
         order = np.argsort(w)[::-1]
         return PCA(
             individual_keys=keys,
             eigenvalues=w[order[:k]],
-            eigenvectors=v[:, order[:k]],
+            eigenvectors=_columns_on_host(kernel.eigenvectors, order[:k]),
             all_eigenvalues=w[order],
         )
     if randomized is None:
@@ -78,13 +94,13 @@ def compute_pca(
     if mesh is not None and mesh.world > 1:
         from dissect_tpu_torch.linalg.dc_eigen import distributed_eigh
 
-        w, v = distributed_eigh(kernel.dense(), ctx=mesh)
+        w, v = distributed_eigh(kernel.matrix if kernel.sharded else kernel.dense(), ctx=mesh)
     else:
         w, v = eigh_full(kernel.dense())
     w_all = w.cpu().numpy()[::-1]
     return PCA(
         individual_keys=keys,
         eigenvalues=w_all[:k],
-        eigenvectors=v.cpu().numpy()[:, ::-1][:, :k],
+        eigenvectors=_columns_on_host(v, np.arange(n - 1, n - 1 - k, -1)),
         all_eigenvalues=w_all,
     )

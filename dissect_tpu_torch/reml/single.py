@@ -133,7 +133,7 @@ class SingleREML:
                     "diagonalized kernel individuals must already match "
                     "the analysis set (diagonalize after intersection)"
                 )
-            self.eigenvectors = kern.eigenvectors.to(device=self.device, dtype=torch.float64)
+            self.eigenvectors = kern.whole().eigenvectors.to(device=self.device, dtype=torch.float64)
             self.y = self.eigenvectors.T @ put(y)
             self.x = self.eigenvectors.T @ put(x)
         else:

@@ -9,10 +9,11 @@ view of the run: its rank, the world size, its device, the near-square
 
 Every collective of the port goes through `MeshContext.broadcast`,
 `all_reduce` and `all_gather`, the three that both NCCL and gloo
-implement, so the transport lives here and nowhere else.  gloo takes
-CUDA tensors for all three (chip_smoke.py's mesh phase checks it on the
-card on every run), so no collective is staged through host tensors by
-the port; gloo copies through host memory itself.
+implement, and `reduce_scatter_rows`, so the transport lives here and
+nowhere else.  gloo takes CUDA tensors for all four (chip_smoke.py's
+mesh phase checks it on the card on every run), so no collective is
+staged through host tensors by the port; gloo copies through host
+memory itself.
 
 A context without a process group (`backend` None, a world of one) runs
 every collective as the identity, so the row-sharded algorithms run
@@ -23,8 +24,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 def near_square_factors(n: int) -> Tuple[int, int]:
@@ -117,6 +119,30 @@ class MeshContext:
             local = torch.cat([local, pad], dim=0)
         return self.all_gather(local)[:n]
 
+    def reduce_scatter_rows(self, blocks: Sequence[torch.Tensor]) -> torch.Tensor:
+        """This rank's rows of a sum over the ranks: `blocks[r]` is this
+        rank's term of rank r's rows (`row_bounds`, so the blocks may be
+        uneven), and rank r gets the sum of every rank's `blocks[r]`:
+        one reduce-scatter."""
+        if self.backend is None:
+            return blocks[0]
+        import torch.distributed as dist
+
+        out = torch.empty_like(blocks[self.rank])
+        dist.reduce_scatter(out, [b.contiguous() for b in blocks])
+        return out
+
+    def row_blocks(self, local: torch.Tensor, n: int):
+        """(start, stop, rows) of every rank's block of a row-sharded (n,
+        cols) matrix whose rows lie as `row_bounds(n)` places them, each
+        broadcast from its owner in turn: beside its own a rank holds one
+        block at a time.  Every rank must run the loop to its end."""
+        for r, (lo, hi) in enumerate(self.row_bounds(n)):
+            if hi == lo:  # an empty shard: nothing to send
+                continue
+            blk = local if r == self.rank else local.new_empty((hi - lo, local.shape[1]))
+            yield lo, hi, self.broadcast(blk, r)
+
     def all_gather_object(self, obj) -> list:
         """Every rank's picklable `obj`, in rank order: the pickles are
         all-gathered as byte tensors (padded to the longest).  Only
@@ -142,9 +168,11 @@ class RowShards:
     """An (n, n_cols) matrix held in contiguous row blocks over the ranks
     of a MeshContext: `local` holds this rank's rows `ctx.local_rows(n)`.
     The multi-rank GRM stays in this form from its build to the
-    row-sharded REML engine, so no rank holds the whole N x N matrix
-    unless a step needs it whole (`whole`: the writers, the
-    eigensolvers, the multi-trait slices)."""
+    row-sharded REML engine and the divide-and-conquer eigensolver, whose
+    eigenvectors come back in it, so no rank holds the whole N x N matrix
+    unless a step needs it whole (`whole`: the GRM writers, the
+    multi-trait slices, the per-SNP refits' eigenbasis; `to_root_host`
+    gathers it to rank 0's host memory instead)."""
 
     local: torch.Tensor
     n: int
@@ -172,6 +200,19 @@ class RowShards:
         """The whole matrix on every rank (an all-gather)."""
         return self.ctx.all_gather_rows(self.local, self.n)
 
+    def to_root_host(self) -> Optional[np.ndarray]:
+        """Collective: the whole matrix as a host array on rank 0 and None
+        on the others, moved one row block at a time, so no device holds
+        it whole."""
+        out = None
+        for lo, hi, blk in self.ctx.row_blocks(self.local, self.n):
+            if self.ctx.rank == 0:
+                host = blk.cpu().numpy()
+                if out is None:
+                    out = np.empty((self.n, self.local.shape[1]), dtype=host.dtype)
+                out[lo:hi] = host
+        return out
+
     def take(self, requests) -> List[torch.Tensor]:
         """Collective: for each (rows, cols) of this rank's `requests`,
         the block M[rows][:, cols] (cols None: every column).  Each
@@ -185,13 +226,7 @@ class RowShards:
             width = self.local.shape[1] if cols is None else cols.numel()
             reqs.append((rows, cols))
             outs.append(self.local.new_empty((rows.numel(), width)))
-        for src, (lo, hi) in enumerate(self.ctx.row_bounds(self.n)):
-            if hi == lo:  # an empty shard: nothing to send
-                continue
-            mine = src == self.ctx.rank
-            shard = self.ctx.broadcast(
-                self.local if mine else self.local.new_empty((hi - lo, self.local.shape[1])), src
-            )
+        for lo, hi, shard in self.ctx.row_blocks(self.local, self.n):
             for out, (rows, cols) in zip(outs, reqs):
                 hit = torch.nonzero((rows >= lo) & (rows < hi)).flatten()
                 if hit.numel():

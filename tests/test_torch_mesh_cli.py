@@ -41,6 +41,8 @@ def _plan(c, world):
         ("igwas", ["--igwas", "--bfile", c["bfile"], "--grm", c["g"]] + par),
         ("remlbfile", ["--reml", "--bfile", c["bfile"], "--pheno", c["pheno67"], "--weights",
                        c["weights"], "--blue", "--indiv-blup", "--indiv-blup-error"] + dist),
+        ("rgwas", ["--rgwas", "--rgwas-group-size", "7", "--significance-threshold", "1e-3",
+                   "--rgwas-thresholds", "0.2", "0.05"] + base + par),
     ]
     if world == 2:
         plan += [
@@ -55,6 +57,11 @@ def _plan(c, world):
             ("null", ["--gwas", "--grm", c["g"]] + base + dist),
             ("ols", ["--gwas"] + base + par),
             ("grouped", ["--gwas", "--groups", c["groups"]] + base + par),
+            ("grouped_effects", ["--gwas", "--groups", c["groups"], "--group-effects"]
+             + base + par),
+            ("rgwas_grm", ["--rgwas", "--grm", c["g"], "--rgwas-group-size", "10",
+                           "--significance-threshold", "1e-2", "--rgwas-ratio", "0.05"]
+             + base + par),
             ("mp", ["--mpresiduals", "--bfile", c["bfile"], "--pheno", c["pheno2"]] + mesh),
             ("mp", ["--mpgwas", "--bfile", c["bfile"]] + par),
         ]
@@ -282,12 +289,16 @@ def test_diagonalized_grm_by_divide_and_conquer(runs):
 
 @pytest.mark.parametrize("name, world", [
     ("null", 2), ("ols", 2), ("mlm", 2), ("mlm", 4), ("grouped", 2), ("mp", 2),
-    ("igwas", 2), ("igwas", 4),
+    ("igwas", 2), ("igwas", 4), ("rgwas", 2), ("rgwas", 4), ("rgwas_grm", 2),
+    ("grouped_effects", 2),
 ])
 def test_parallel_gwas_matches_single_device(runs, name, world):
-    """--parallel-gwas for ols, mlm, grouped, mp and igwas, and the null
-    fit's distributed diagonalization: every output file equals the
-    single-device run's by the golden rule."""
+    """--parallel-gwas for ols, mlm, grouped (with --group-effects), mp,
+    igwas and rgwas (with and without --grm), and the null fit's
+    distributed diagonalization: every output file equals the
+    single-device run's by the golden rule, the group effects' matrix
+    too."""
+    from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
     from tests.test_golden import _diff_files
 
     tmp, _ = runs
@@ -300,9 +311,41 @@ def test_parallel_gwas_matches_single_device(runs, name, world):
     for fname in names:
         if not fname.endswith(".dat"):
             _diff_files(ours_dir / fname, single_dir / fname, rtol=2e-5)
-    if name in ("ols", "mlm", "grouped", "mp", "igwas"):
+        elif fname.endswith(".effects.dat"):
+            ours, single = (LabeledMatrix.load(str(d / fname[:-4])) for d in (ours_dir, single_dir))
+            assert ours.row_labels == single.row_labels and ours.col_labels == single.col_labels
+            np.testing.assert_allclose(ours.values, single.values, rtol=2e-5, atol=1e-12)
+    if name == "grouped_effects":
+        assert f"{name}.effects.dat" in names
+    if name.startswith("rgwas"):
+        assert len(open(ours_dir / f"{name}.rgwas").read().split()) > 1  # SNPs reported
+    if name in ("ols", "mlm", "grouped", "mp", "igwas", "rgwas", "rgwas_grm", "grouped_effects"):
         log = _log(str(ours_dir / name))
         assert "sharded over" in log or name in ("mp", "igwas")
+
+
+@pytest.mark.parametrize("name", ["rgwas", "rgwas_grm", "grouped_effects"])
+def test_grouped_paths_match_the_jax_mesh(runs, name):
+    """--rgwas (with and without --grm) and --group-effects under
+    --parallel-gwas against the JAX CLI on its mesh: the same reported
+    SNPs; the per-SNP and group p-values and the group effects at the
+    tolerance of the mlm comparison (rtol 1e-3)."""
+    from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
+
+    tmp, c = runs
+    theirs = _jax(c, tmp, name, dict(_plan(c, 2))[name])
+    ours = str(tmp / "w2" / name)
+    if name.startswith("rgwas"):
+        snps = [open(p + ".rgwas").read().split() for p in (ours, theirs)]
+        assert snps[0] == snps[1] and len(snps[0]) > 1
+        return
+    cols = (8, 9)  # PV, GROUPPV
+    p_ours = np.loadtxt(ours + ".multi.gwas.snps", skiprows=1, usecols=cols)
+    p_theirs = np.loadtxt(theirs + ".multi.gwas.snps", skiprows=1, usecols=cols)
+    np.testing.assert_allclose(p_ours, p_theirs, rtol=1e-3, atol=1e-8)
+    e_ours, e_theirs = LabeledMatrix.load(ours + ".effects"), LabeledMatrix.load(theirs + ".effects")
+    assert e_ours.col_labels == e_theirs.col_labels
+    np.testing.assert_allclose(e_ours.values, e_theirs.values, rtol=1e-3, atol=1e-8)
 
 
 def test_parallel_mlm_matches_the_jax_mesh(runs):

@@ -238,6 +238,33 @@ def test_collectives_on_gloo_ranks(world, tmp_path):
         np.testing.assert_array_equal(host, np.arange(2 * world - 1))
 
 
+def _scattered_rows(ctx):
+    """reduce_scatter_rows of 7 uneven rows (rank r's term of every row i
+    is (r + 1) (i + 1)); then RowShards.to_root_host."""
+    n = 7
+    blocks = [float(ctx.rank + 1) * torch.arange(lo + 1, hi + 1, dtype=torch.float64)[:, None]
+              .expand(hi - lo, 3).contiguous() for lo, hi in ctx.row_bounds(n)]
+    mine = ctx.reduce_scatter_rows(blocks)
+    whole = torch.arange(4.0 * n, dtype=torch.float64).reshape(n, 4)
+    host = mesh.RowShards(whole[slice(*ctx.local_rows(n))], n, ctx).to_root_host()
+    return mine.numpy(), host
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_reduce_scatter_rows_and_to_root_host(world, tmp_path):
+    """Each rank gets its rows (4/3 and 3/3/1 of 7) of the sum over the
+    ranks, by gloo's reduce-scatter; to_root_host gives rank 0 the whole
+    matrix and the other ranks None."""
+    for rank, (mine, host) in enumerate(run_ranks(_scattered_rows, world, tmp_path)):
+        lo, hi = MeshContext(rank=rank, world=world).local_rows(7)
+        want = world * (world + 1) / 2 * np.arange(lo + 1, hi + 1, dtype=np.float64)
+        np.testing.assert_array_equal(mine, np.repeat(want[:, None], 3, axis=1))
+        if rank == 0:
+            np.testing.assert_array_equal(host, np.arange(28.0).reshape(7, 4))
+        else:
+            assert host is None
+
+
 # --- failures stop every rank ---------------------------------------------------
 
 def _cli_rank(rank, world, port, argv, q):

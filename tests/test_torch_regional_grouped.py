@@ -221,6 +221,92 @@ def test_recursive_gwas_matches_jax(problem, kw):
     _assert_groups(res, ref, rtol=1e-6)
 
 
+def _uneven_grouping(names):
+    """Buckets of 5, 3, 2 and 1 groups by kept size (the size-5 group
+    holds the dependent pair snp0/snp25, so it keeps 4 SNPs): every
+    bucket splits unevenly over 2 and 3 ranks, some shares empty."""
+    sizes = [1] * 5 + [2] * 3 + [3] * 2
+    grouping, at = OrderedDict(), 1
+    for i, size in enumerate(sizes):
+        grouping[f"u{i}"] = names[at:at + size]
+        at += size
+    grouping["dep"] = [names[0], names[20], names[21], names[22], names[25]]
+    return grouping
+
+
+def _grouped_on_ranks(ctx, dosage, mean, names, grouping, y, x, covariance, rgwas_kw):
+    """grouped_gwas (OLS and mixed, with effects), the correlated flags
+    and recursive_gwas on this rank with `ctx`; the groups whose result
+    this rank built (GroupResult made here, not received) and each
+    recursive pass's grouping."""
+    rows = grouped.CenteredRows(torch.as_tensor(dosage), torch.as_tensor(mean))
+    made, passes = [], []
+    real_init, real_grouped = grouped.GroupResult.__init__, grouped.grouped_gwas
+
+    def init_spy(self, **kw):
+        made[-1].append(kw["group"])
+        real_init(self, **kw)
+
+    def grouped_spy(*args, **kw):
+        passes.append([list(v) for v in args[2].values()])
+        return real_grouped(*args, **kw)
+
+    grouped.GroupResult.__init__ = init_spy
+    out = {}
+    try:
+        for name, cov in (("ols", None), ("mixed", covariance)):
+            made.append([])
+            out[name] = grouped.grouped_gwas(rows, names, grouping, y, x, covariance=cov,
+                                             compute_effects=True, mesh_ctx=ctx)
+        made.append([])
+        out["flagged"] = grouped.flag_correlated_in_groups(rows, names, out["ols"][0], 0.1,
+                                                           mesh_ctx=ctx)
+        grouped.grouped_gwas = grouped_spy
+        out["rgwas"] = grouped.recursive_gwas(rows, names[:25], y, x, mesh_ctx=ctx, **rgwas_kw)
+    finally:
+        grouped.GroupResult.__init__, grouped.grouped_gwas = real_init, real_grouped
+    return out, made[:2], passes
+
+
+@pytest.mark.parametrize("world", [2, 3])
+def test_grouped_gwas_sharded_over_ranks(problem, tmp_path, world):
+    """--parallel-gwas's grouped and recursive fits: each rank fits only
+    its contiguous share of every size bucket (the buckets of 5, 3, 2
+    and 1 groups split unevenly), and every rank returns the single-rank
+    results in their order, the same effects and correlated flags at
+    rtol 1e-12; recursive_gwas takes the same pass groupings and
+    significant SNPs on every rank as on one."""
+    from dissect_tpu_torch.runtime.mesh import MeshContext
+    from tests.test_torch_mesh_runtime import run_ranks
+
+    p = problem
+    grouping = _uneven_grouping(p["names"])
+    rgwas_kw = dict(group_size=4, significance_threshold=1e-2, iteration_thresholds=[0.3, 0.1])
+    mean = p["ours"].stats().mean
+    args = (p["dosage"], mean, p["names"], grouping, p["y"], p["x"], p["covariance"], rgwas_kw)
+    single, _, single_passes = _grouped_on_ranks(None, *args)
+    outs = run_ranks(_grouped_on_ranks, world, tmp_path, *args)
+    for rank, (out, made, passes) in enumerate(outs):
+        for name in ("ols", "mixed"):
+            results, effects = out[name]
+            want, want_effects = single[name]
+            _assert_groups(results, want, rtol=1e-12)
+            assert effects.col_labels == want_effects.col_labels == list(grouping)
+            np.testing.assert_allclose(effects.values, want_effects.values, rtol=1e-12,
+                                       atol=1e-300)
+            buckets = OrderedDict()
+            for g, res in want.items():
+                buckets.setdefault(len(res.snp_names), []).append(g)
+            assert sorted(len(v) for v in buckets.values()) == [1, 2, 3, 5]
+            ctx = MeshContext(rank=rank, world=world)
+            share = [g for gs in buckets.values() for g in gs[slice(*ctx.local_rows(len(gs)))]]
+            assert made[["ols", "mixed"].index(name)] == share
+        assert out["flagged"] == single["flagged"]
+        assert out["rgwas"][0] == single["rgwas"][0] and out["rgwas"][0]
+        _assert_groups(out["rgwas"][1], single["rgwas"][1], rtol=1e-12)
+        assert passes == single_passes and len(passes) >= 2
+
+
 # ------------------------------------------------------------- regional --
 @pytest.fixture(scope="module")
 def regional_problem():

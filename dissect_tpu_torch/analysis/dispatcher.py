@@ -121,28 +121,32 @@ def _map_snp_chunks(fn, data: Union[PlinkData, BgenData], mean: np.ndarray, devi
     decodes only its `shard_snp_rows` share of a block and fn sees those
     rows, called as fn(z, names, n_snps_in_block); each per-SNP field of
     its result is then all-gathered back to the block, unless fn gathers
-    itself (`gathers`)."""
+    itself (`gathers`).
+
+    Spans (runtime/timers.py): gwas.chunk for each block, and in it
+    gwas.decode (the decode and the centering) before fn."""
     chunk = chunk or GWAS_CHUNK_SNPS
     names = data.snp_names
     parts = []
     for start in range(0, data.n_snps, chunk):
         stop = min(start + chunk, data.n_snps)
-        if ctx is None:
-            dosage = data.decode_rows(start, stop).to(device)
-            z = centered_genotypes(dosage, torch.as_tensor(mean[start:stop]).to(device))
-            parts.append(fn(z, names[start:stop]))
-            continue
-        idx = start + snp_row_index(stop - start, ctx)
-        dosage = decode_snp_shard(data, start, stop, ctx).to(device)
-        z = centered_genotypes(dosage, torch.as_tensor(mean[idx]).to(device))
-        res = fn(z, [names[i] for i in idx], stop - start)
-        if gathers:
+        with timers.span("gwas.chunk"):
+            if ctx is None:
+                with timers.span("gwas.decode"):
+                    dosage = data.decode_rows(start, stop).to(device)
+                    z = centered_genotypes(dosage, torch.as_tensor(mean[start:stop]).to(device))
+                parts.append(fn(z, names[start:stop]))
+                continue
+            idx = start + snp_row_index(stop - start, ctx)
+            with timers.span("gwas.decode"):
+                dosage = decode_snp_shard(data, start, stop, ctx).to(device)
+                z = centered_genotypes(dosage, torch.as_tensor(mean[idx]).to(device))
+            res = fn(z, [names[i] for i in idx], stop - start)
+            if not gathers:
+                res = gather_snp_fields(res, stop - start, ctx)
+                if hasattr(res, "snp_names"):
+                    res.snp_names = list(names[start:stop])
             parts.append(res)
-            continue
-        res = gather_snp_fields(res, stop - start, ctx)
-        if hasattr(res, "snp_names"):
-            res.snp_names = list(names[start:stop])
-        parts.append(res)
     return parts
 
 

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from dissect_tpu_torch.io.genotype_kernels import bed_counts, bed_decode
+from dissect_tpu_torch.runtime.timers import timers
 
 BED_MAGIC = b"\x6c\x1b\x01"  # SNP-major PLINK bed
 # SNP rows per upload and per K4 or K5 launch: 20 MB of packed rows at
@@ -219,10 +220,12 @@ class PlinkData:
             lo, hi = max(start, pos), min(stop, pos + len(seg.rows))
             for b in range(lo, hi, BLOCK_ROWS):
                 rows = seg.rows[b - pos : min(b + BLOCK_ROWS, hi) - pos]
-                host = torch.empty((len(rows), seg.packed.shape[1]), dtype=torch.uint8,
-                                   pin_memory=self.device.type == "cuda")
-                np.take(seg.packed, rows, axis=0, out=host.numpy())
-                yield seg, host.to(self.device, non_blocking=True)
+                with timers.span("plink.gather"):
+                    host = torch.empty((len(rows), seg.packed.shape[1]), dtype=torch.uint8,
+                                       pin_memory=self.device.type == "cuda")
+                    np.take(seg.packed, rows, axis=0, out=host.numpy())
+                    packed = host.to(self.device, non_blocking=True)
+                yield seg, packed
             pos += len(seg.rows)
 
     def _decode_into(self, out, start: int):
@@ -257,6 +260,7 @@ class PlinkData:
         return self.decode_chunk(0, self.n_snps)
 
     # --- stats ---------------------------------------------------------------
+    @timers.span("plink.stats")
     def stats(self) -> SnpStats:
         """Per-SNP statistics over the data's individuals, from K5's
         genotype counts of blocks of BLOCK_ROWS rows (cached)."""
@@ -269,6 +273,7 @@ class PlinkData:
         return self._stats
 
     # --- filtering (parity: genotype.cpp:972 filterSNPsAndIndividuals) -------
+    @timers.span("plink.filter")
     def filter(
         self,
         keep_snps: Optional[Sequence[str]] = None,
@@ -367,22 +372,22 @@ def read_fam(path: str) -> List[IndividualInfo]:
     return individuals
 
 
+@timers.span("plink.read")
 def read_plink(prefix: str, device="cuda") -> PlinkData:
     """Load a .bed/.bim/.fam fileset; its payload stays memmap'd, and its
-    genotypes decode on `device`."""
+    genotypes decode on `device`.  Spans: plink.open (the .bed's magic),
+    plink.read_text (the .bim and .fam parse)."""
     bed_path = prefix + ".bed"
-    with open(bed_path, "rb") as fh:
-        magic = fh.read(3)
+    with timers.span("plink.open"):
+        with open(bed_path, "rb") as fh:
+            magic = fh.read(3)
     if magic != BED_MAGIC:
         raise ValueError(
             f"{bed_path}: bad magic {magic!r} (expected SNP-major PLINK bed)"
         )
-    return PlinkData(
-        snps=read_bim(prefix + ".bim"),
-        individuals=read_fam(prefix + ".fam"),
-        bed_path=bed_path,
-        device=device,
-    )
+    with timers.span("plink.read_text"):
+        snps, individuals = read_bim(prefix + ".bim"), read_fam(prefix + ".fam")
+    return PlinkData(snps=snps, individuals=individuals, bed_path=bed_path, device=device)
 
 
 def write_plink(prefix: str, data: PlinkData):

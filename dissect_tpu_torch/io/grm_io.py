@@ -21,6 +21,7 @@ from typing import List, Tuple
 
 import numpy as np
 from dissect_tpu_torch.runtime.log import output_open
+from dissect_tpu_torch.runtime.timers import timers
 
 _HEADER_FMT = "<4s2B2B B B 4B"  # 14 bytes
 
@@ -175,6 +176,7 @@ def write_gcta_grm_gz(prefix: str, kernel, counts, individual_keys):
                 fh.write(f"{i + 1}\t{j + 1}\t{counts[i, j]:g}\t{kernel[i, j]:.8g}\n")
 
 
+@timers.span("grm_io.read")
 def read_grm(prefix: str):
     """Read `.grm.*`; returns a dict with either kernel/counts or eigen data."""
     keys, snps = read_ids_snps(prefix)

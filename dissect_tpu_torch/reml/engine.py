@@ -51,6 +51,7 @@ from dissect_tpu_torch.linalg.traces import diag_of_abat
 from dissect_tpu_torch.model.covariance import CovarianceModel, ParameterType
 from dissect_tpu_torch.runtime.checkpoint import REMLCheckpoint
 from dissect_tpu_torch.runtime.log import get_logger
+from dissect_tpu_torch.runtime.timers import timers
 
 
 @dataclasses.dataclass
@@ -275,11 +276,12 @@ class REMLEngine:
             em_step = (it == 0 and opts.first_step_em and not opts.use_ml) or (
                 opts.reml_method_em and not opts.use_ml
             )
-            out = self._quantities(theta)
-            q = {
-                key: np.asarray(out[key].detach().cpu().numpy(), dtype=np.float64)
-                for key in _HOST_KEYS
-            }
+            with timers.span("reml.quantities"):
+                out = self._quantities(theta)
+                q = {
+                    key: np.asarray(out[key].detach().cpu().numpy(), dtype=np.float64)
+                    for key in _HOST_KEYS
+                }
             if not bool(q["finite"]):
                 success = False
                 break

@@ -141,6 +141,11 @@ class _Segment:
     rows: np.ndarray  # int64 rows of `packed`, in the data's SNP order
     cols: Optional[torch.Tensor]  # int32 source individuals on the device; None: all, in order
 
+    def __post_init__(self):
+        if len(self.rows) and (self.rows.min() < 0 or self.rows.max() >= self.packed.shape[0]):
+            raise ValueError(f"segment rows span [{self.rows.min()}, {self.rows.max()}], "
+                             f"outside the {self.packed.shape[0]} packed rows")
+
 
 @dataclasses.dataclass
 class PlinkData:
@@ -213,8 +218,11 @@ class PlinkData:
     def _packed_rows(self, start: int, stop: int):
         """(segment, packed rows on the device) for each block of at most
         BLOCK_ROWS of the rows [start, stop) that lie in one segment: the
-        block's rows are gathered on the host into a pinned buffer and
-        uploaded without a wait."""
+        block's rows are taken on the host into a buffer of its own (pinned
+        for a card, from the caching host allocator) and uploaded without a
+        wait.  The take is unbuffered (`mode="clip"`; numpy buffers `out` in
+        its default mode); it hides no bad row, since a segment's rows are
+        checked when the segment is built.  Counter: plink.bytes_staged."""
         pos = 0
         for seg in self._segments:
             lo, hi = max(start, pos), min(stop, pos + len(seg.rows))
@@ -223,7 +231,8 @@ class PlinkData:
                 with timers.span("plink.gather"):
                     host = torch.empty((len(rows), seg.packed.shape[1]), dtype=torch.uint8,
                                        pin_memory=self.device.type == "cuda")
-                    np.take(seg.packed, rows, axis=0, out=host.numpy())
+                    np.take(seg.packed, rows, axis=0, out=host.numpy(), mode="clip")
+                    timers.count("plink.bytes_staged", host.numel())
                     packed = host.to(self.device, non_blocking=True)
                 yield seg, packed
             pos += len(seg.rows)

@@ -12,6 +12,7 @@ rtol 1e-6, counts exactly); the CLI runs against the JAX CLI at rtol
 2e-5 (tests/test_golden.py).
 """
 
+import dataclasses
 import os
 import pathlib
 import struct
@@ -681,6 +682,72 @@ def jax_bed_pack(d):
         path, _ = make_plink(pathlib.Path(tmp), d, prefix="p")
         raw = np.fromfile(path + ".bed", dtype=np.uint8)[3:]
     return raw.reshape(d.shape[0], -1)
+
+
+def _staging_case(tmp_path, rng, case):
+    """A PlinkData of 20 + 13 SNPs over 23 individuals read as `case`."""
+    d1, d2 = make_dosage(rng, 20, 23, missing_rate=0.1), make_dosage(rng, 13, 23, missing_rate=0.1)
+    if case == "in_memory":
+        snps = [bed.SnpInfo("1", f"s{i}", 0.0, i, "A", "C") for i in range(20)]
+        inds = [bed.IndividualInfo(f"F{i}", f"I{i}") for i in range(23)]
+        return bed.PlinkData(snps=snps, individuals=inds, _dosage=d1, device="cpu")
+    data = bed.read_plink(make_plink(tmp_path, d1, prefix="a")[0], device="cpu")
+    if case == "appended":
+        return data.append_snps(bed.read_plink(make_plink(tmp_path, d2, prefix="b")[0],
+                                               device="cpu"))
+    if case == "runs":
+        return data.filter(keep_snps=[data.snp_names[i] for i in [*range(2, 9), *range(12, 19)]])
+    if case == "shuffled":
+        return data.filter(keep_snps=[data.snp_names[i] for i in rng.permutation(20)[:15]])
+    return data
+
+
+@pytest.mark.parametrize("block_rows", [1, 3, 8192])
+@pytest.mark.parametrize("case", ["unfiltered", "runs", "shuffled", "appended", "in_memory"])
+def test_staged_blocks_are_the_packed_rows_taken(tmp_path, rng, monkeypatch, case, block_rows):
+    """_packed_rows gives, block by block, the bytes numpy's default
+    (buffered) np.take gives for the same rows."""
+    monkeypatch.setattr(bed, "BLOCK_ROWS", block_rows)
+    data = _staging_case(tmp_path, rng, case)
+    rows = np.concatenate([seg.rows for seg in data._segments])
+    seg_of = np.concatenate([np.full(len(seg.rows), i) for i, seg in enumerate(data._segments)])
+    for start, stop in ((0, data.n_snps), (1, data.n_snps - 2)):
+        blocks = list(data._packed_rows(start, stop))
+        assert all(0 < len(packed) <= block_rows for _, packed in blocks)
+        pos = start
+        for seg, packed in blocks:
+            assert (seg_of[pos : pos + len(packed)] == seg_of[pos]).all()
+            assert seg is data._segments[seg_of[pos]]
+            np.testing.assert_array_equal(packed.numpy(),
+                                          np.take(seg.packed, rows[pos : pos + len(packed)], axis=0))
+            pos += len(packed)
+        assert pos == stop
+
+
+def test_blocks_held_at_once_on_the_cpu_are_distinct_buffers(tmp_path, rng, monkeypatch):
+    """On the CPU `.to` hands back the staging buffer itself: each block
+    gets its own, so blocks held together keep their own rows."""
+    monkeypatch.setattr(bed, "BLOCK_ROWS", 3)
+    data = _staging_case(tmp_path, rng, "unfiltered")
+    blocks = [packed for _, packed in data._packed_rows(0, data.n_snps)]
+    assert len({p.data_ptr() for p in blocks}) == len(blocks)
+    packed = data._segments[0].packed
+    for i, p in enumerate(blocks):
+        np.testing.assert_array_equal(p.numpy(), packed[3 * i : 3 * i + 3])
+    assert not np.array_equal(blocks[0].numpy(), blocks[1].numpy())
+
+
+@pytest.mark.parametrize("rows", [[0, 3], [-1, 1], [5]])
+def test_a_segment_with_a_row_out_of_range_is_refused_when_built(rng, rows):
+    """Rows are checked once, against the packed rows, where a segment is
+    built (the staging take clips and would hide a bad row)."""
+    packed = bed.pack_dosage(make_dosage(rng, 3, 9))
+    bed._Segment(packed, 9, np.array([2, 0, 1]), None)
+    with pytest.raises(ValueError, match="outside the 3 packed rows"):
+        bed._Segment(packed, 9, np.array(rows, dtype=np.int64), None)
+    seg = bed._Segment(packed, 9, np.arange(3), None)
+    with pytest.raises(ValueError, match="outside the 3 packed rows"):
+        dataclasses.replace(seg, rows=np.array(rows, dtype=np.int64))
 
 
 def test_read_bgen_matches_jax_native_reader():

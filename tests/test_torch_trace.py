@@ -225,7 +225,7 @@ def plink_scan(tmp_path):
               ("gwas.fisher", "gwas.refit"), ("gwas.readback", "gwas.refit"),
               ("gwas.retry", "gwas.refit"), ("gwas.fisher", "gwas.retry"),
               ("gwas.pvalues", "gwas.refit")}
-    return run, expect, set()
+    return run, expect, {"plink.bytes_staged"}
 
 
 def dense_reml(tmp_path):
@@ -272,7 +272,7 @@ def grm_build(tmp_path):
               ("grm.accumulate", None), ("plink.gather", "grm.accumulate"),
               ("grm.normalize", None), ("grm.sanitize", None), ("grm_io.read", None),
               ("eigen.diagonalize", None)}
-    return run, expect, set()
+    return run, expect, {"plink.bytes_staged"}
 
 
 def bgen_read(tmp_path, monkeypatch):
@@ -297,6 +297,8 @@ def bgen_read(tmp_path, monkeypatch):
     return run, expect, {"bgen.bytes_inflated"}
 
 
+# path -> (SNP rows, packed bytes a row: ceil(N / 4) for the file's N individuals)
+STAGED = {"plink_scan": (48, 16), "grm_build": (70, 10)}
 PATHS = {"plink_scan": plink_scan, "dense_reml": dense_reml, "grm_build": grm_build,
          "bgen_read": bgen_read}
 
@@ -308,7 +310,7 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
     run, expect, counters = (build(tmp_path, monkeypatch) if path == "bgen_read"
                              else build(tmp_path))
     plain = run()
-    assert timers.records == []
+    assert timers.records == [] and timers.summary()["counters"] == {}
     with profile():
         traced = run()
     assert links() == expect
@@ -320,6 +322,10 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
     assert plain.keys() == traced.keys()
     for k in plain:
         np.testing.assert_array_equal(traced[k], plain[k], err_msg=k)
+    if path in STAGED:
+        # K5's pass and K4's each stage every row once (rows x bytes a row)
+        rows, row_bytes = STAGED[path]
+        assert summary["counters"] == {"plink.bytes_staged": 2 * rows * row_bytes}
     if path == "bgen_read":
         # 20 variants in batches of 8; a layout-2 block of N = 30 samples
         # at 8 bits holds 10 + 3N bytes (BGEN v1.2: N, K, the ploidy

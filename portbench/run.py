@@ -22,9 +22,14 @@ which names the kind of unit, portbench/units/<unit>.py).  A run:
    the last line of standard output; each compared number beside its
    limit as the last lines of standard error.
 
+A cell whose `chips` is above 1 runs as that many processes, one a card,
+in lockstep (portbench/ranks.py): this process is rank 0, which alone
+reads the clock, is traced, checks and prints.
+
 It exits with another code than 0, and prints no result, where there is
-no CUDA card, where the program is missing, or where JAX or the JAX
-package was loaded.  Nothing here imports JAX or the JAX package.
+no CUDA card (or fewer than the cell's chips), where the program is
+missing, where another rank ended with an error, or where JAX or the
+JAX package was loaded.  Nothing here imports JAX or the JAX package.
 """
 
 import time
@@ -36,6 +41,7 @@ import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import gc  # noqa: E402
 import importlib.util  # noqa: E402
+import inspect  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -53,6 +59,7 @@ if str(ROOT) not in sys.path:
 
 import torch  # noqa: E402
 
+from portbench import ranks as rank_group  # noqa: E402
 from portbench import trace as tracing  # noqa: E402
 from portbench.cohort import make_cohort  # noqa: E402
 
@@ -68,6 +75,8 @@ class Context:
     device: torch.device
     workdir: Path
     cohort: object
+    rank: int = 0
+    world: int = 1
 
 
 @dataclasses.dataclass
@@ -86,6 +95,7 @@ class Run:
     counters: dict
     outputs: list
     trace: dict = None
+    chips: int = 1
 
 
 def load_module(path: Path, name: str):
@@ -151,22 +161,22 @@ def nvidia_smi():
         return f"nvidia-smi unavailable ({exc})"
 
 
-def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, device,
-             overrides=None):
-    """Run cell `name` once on `device`.  Returns (result, compared):
-    the result line's object and {number: (value, limit)}.  `overrides`
-    replaces configuration values (the CPU tests' small cohorts)."""
+def load_cell(root: Path, name: str, overrides=None):
+    """(spec, configuration, traffic, unit kind) of cell `name`."""
     spec = cell_spec(Path(root), name)
     config = {**spec["config"], **(overrides or {})}
     traffic = spec["traffic"]
     unit_kind = load_module(find(Path(root), "portbench", "units", traffic["unit"] + ".py"),
                             "portbench_unit_" + traffic["unit"])
-    device = torch.device(device)
-    on_card = device.type == "cuda"
+    return spec, config, traffic, unit_kind
 
+
+def prepare(device: torch.device) -> None:
+    """The program's kernels (built only the first time in a checkout)
+    and its precision settings."""
     from dissect_tpu_torch.runtime.dtypes import configure_precision
 
-    if on_card:
+    if device.type == "cuda":
         from dissect_tpu_torch.runtime import cuda_lib
 
         torch.cuda.set_device(device)
@@ -174,15 +184,36 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
             built = "cached" if info["ptxas"] == "cached" else f"built in {info['seconds']:.1f} s"
             print(f"portbench: kernel {lib} {built}", file=sys.stderr)
     configure_precision()
+
+
+def reset_peak(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, device,
+             overrides=None):
+    """Run cell `name` once on `device` (rank 0's, where the cell takes
+    more than one chip).  Returns (result, compared): the result line's
+    object and {number: (value, limit)}.  `overrides` replaces
+    configuration values (the CPU tests' small cohorts)."""
+    spec, config, traffic, unit_kind = load_cell(root, name, overrides)
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    prepare(device)
     workdir = Path(tempfile.mkdtemp(prefix="portbench-", dir=os.environ.get("TMPDIR")))
+    group = rank_group.Solo()
     try:
+        group = rank_group.start(Path(root), name, seed, spec["cell"]["chips"], device, workdir,
+                                 overrides, trace)
         cohort = make_cohort(config, seed, workdir / "cohort", device,
                              n_traits=traffic.get("traits", 1))
-        ctx = Context(seed=seed, device=device, workdir=workdir, cohort=cohort)
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(device)
+        group.publish(cohort)
+        ctx = Context(seed=seed, device=device, workdir=workdir, cohort=cohort,
+                      world=group.world)
+        reset_peak(device)
         spans = tracing.Spans(device)
         state = unit_kind.setup(ctx)
         unit_kind.unit(state, spans)  # the warm unit
@@ -195,6 +226,7 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
             with torch.profiler.record_function(tracing.WINDOW):
                 t0 = time.monotonic()
                 while True:
+                    group.tell(True)
                     done, out = unit_kind.unit(state, spans)
                     work += done
                     outputs.append(out)
@@ -202,16 +234,22 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
                     if ends[-1] - t0 >= seconds:
                         break
                 t1 = ends[-1]
+                group.tell(False)
         run = Run(
             config=config, traffic=traffic, setup_s=setup_s,
             window_s=t1 - t0, units=len(outputs), work=work,
-            peak_bytes=torch.cuda.max_memory_allocated(device) if on_card else 0,
+            peak_bytes=group.largest(rank_group.local_peak(device)),
             spans=spans.seconds(since=t0), counters=counter_delta(counters(), before),
             outputs=outputs, trace=tracing.read_trace(profile) if trace else None,
+            chips=group.world,
         )
+        busy_s = run.trace["busy_s"] if run.trace else 0.0
+        if trace and group.world > 1:  # the device's busy seconds: the mean over the cards
+            busy_s = group.mean(busy_s)
         if hasattr(unit_kind, "finish"):
             unit_kind.finish(state, outputs)
         del state, profile
+        group.close()
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
@@ -220,6 +258,9 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
         units = [round(b - a, 3) for a, b in zip([t0] + ends, ends)]
         print(f"portbench: set-up {setup_s:.3f} s, window {t1 - t0:.3f} s, units {units}, "
               f"check {time.monotonic() - t2:.3f} s", file=sys.stderr)
+    except BaseException:
+        group.close(failed=True)
+        raise
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -238,12 +279,12 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
         "device": {
             "platform": "gpu" if on_card else "cpu",
             "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
-            "count": 1,
+            "count": run.chips,
             "memory_peak_bytes": run.peak_bytes,
         },
     }
     if run.trace is not None:
-        result["device"]["busy_s"] = run.trace["busy_s"]
+        result["device"]["busy_s"] = busy_s
         result["device"]["window_s"] = run.trace["window_s"]
         result["breakdown"] = {"device_ops": run.trace["device_ops"],
                                "idle_gaps": run.trace["idle_gaps"]}
@@ -251,11 +292,52 @@ def run_cell(root: Path, name: str, seed: int, seconds: float, trace: bool, devi
     return result, compared
 
 
+def run_rank(run: dict) -> int:
+    """Rank r > 0 of a cell on several cards (portbench/ranks.py): the
+    set-up, the warm unit and every unit rank 0 calls for, then the
+    peak (and, traced, the busy seconds) to rank 0; no result.  Exits
+    with an error where this rank loaded JAX or the JAX package."""
+    peer = rank_group.Peer(run)
+    _, _, traffic, unit_kind = load_cell(run["root"], run["name"], run["overrides"])
+    prepare(peer.device)
+    cohort = peer.cohort()
+    ctx = Context(seed=run["seed"], device=peer.device, workdir=peer.workdir, cohort=cohort,
+                  rank=peer.rank, world=peer.world)
+    reset_peak(peer.device)
+    spans = tracing.Spans(peer.device)
+    state = unit_kind.setup(ctx)
+    outputs = [unit_kind.unit(state, spans)[1]]  # the warm unit
+    profile = tracing.profiler() if run["trace"] else contextlib.nullcontext()
+    with profile:
+        go = peer.hear()  # the window opens with rank 0's first word
+        with torch.profiler.record_function(tracing.WINDOW):
+            while go:
+                outputs.append(unit_kind.unit(state, spans)[1])
+                go = peer.hear()
+    peer.largest(rank_group.local_peak(peer.device))
+    if run["trace"]:
+        trace = tracing.read_trace(profile)
+        peer.mean(trace["busy_s"] if trace else 0.0)
+    if hasattr(unit_kind, "finish"):
+        unit_kind.finish(state, outputs)
+    del state
+    peer.close()
+    loaded = forbidden_loaded()
+    if loaded:  # rank 0 then sees this rank end with an error and prints no result
+        print(f"portbench: rank {peer.rank} loaded {', '.join(loaded)}", file=sys.stderr)
+        return 4
+    return 0
+
+
 def check(unit_kind, ctx, outputs, limits):
     """Each compared number over the window's units beside its limit, and
     the count of units that broke a limit.  A number that is not finite,
-    or that has no limit, fails."""
-    ref = unit_kind.reference(ctx)
+    or that has no limit, fails.  A reference that takes `outputs` is
+    given the window's (to refit only what the window fitted)."""
+    if "outputs" in inspect.signature(unit_kind.reference).parameters:
+        ref = unit_kind.reference(ctx, outputs=outputs)
+    else:
+        ref = unit_kind.reference(ctx)
     numbers = {}
     failed = 0
     for out in outputs:
@@ -281,6 +363,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, required=True)
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    if rank_group.RANK_ENV in os.environ:  # a rank that rank 0 started
+        return run_rank(rank_group.peer_run())
     args = p.parse_args(argv)
 
     spec = cell_spec(ROOT, args.workload)

@@ -14,6 +14,7 @@ SMALLER = {
     "imputed_gwas_scan": {"n_individuals": 4000, "n_snps": 2000},
     "array_reml": {"n_individuals": 4000, "n_snps": 20000},
     "array_make_grm": {"n_individuals": 4000, "n_snps": 20000},
+    "array_reml_mesh4": {"n_individuals": 4000, "n_snps": 20000},
 }
 
 

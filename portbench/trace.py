@@ -17,6 +17,10 @@ import torch
 
 WINDOW = "portbench.window"
 SPAN_PREFIX = "portbench."
+# host ranges that the trace mirrors on the device's timeline, which are
+# no work there: the benchmark's spans, and the collectives' annotations
+# (`nccl:all_gather` beside the kernel `ncclDevKernel_AllGather_...`)
+MIRRORED = (SPAN_PREFIX, "nccl:")
 
 
 class Spans:
@@ -73,8 +77,8 @@ def read_trace(prof, top=10):
     for e in prof.profiler.kineto_results.events():
         start, end = e.start_ns() * 1e-9, (e.start_ns() + e.duration_ns()) * 1e-9
         on_device = e.device_type() == torch.autograd.DeviceType.CUDA
-        if on_device and e.name().startswith(SPAN_PREFIX):
-            continue  # a span's range mirrored on the device's timeline: no work
+        if on_device and e.name().startswith(MIRRORED):
+            continue  # a host range mirrored on the device's timeline: no work
         if on_device:
             device.append((start, end, e.name()))
         elif e.name() == WINDOW:

@@ -23,7 +23,7 @@ in the genotypes' dtype.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -127,6 +127,22 @@ class MpGwasResults:
         )
 
 
+@dataclasses.dataclass
+class DeviceResiduals:
+    """Residual columns on the compute device in its bulk dtype, with their
+    labels: what mp_gwas reads of a LabeledMatrix, moved there once for
+    every chunk of a pass."""
+
+    values: torch.Tensor  # (n, P)
+    col_labels: List[str]
+
+    @classmethod
+    def upload(cls, residuals: LabeledMatrix, device, dtype) -> "DeviceResiduals":
+        """The matrix's values as they are (center them first), in one copy."""
+        return cls(torch.as_tensor(residuals.values).to(device=device, dtype=dtype),
+                   list(residuals.col_labels))
+
+
 def _mp_core(g, y):
     xtx = torch.einsum("mi,mi->m", g, g)
     xty = g @ y  # (M, P)
@@ -137,32 +153,47 @@ def _mp_core(g, y):
 def mp_gwas(
     genotypes: torch.Tensor,
     snp_names: Sequence[str],
-    residuals: LabeledMatrix,
+    residuals: Union[LabeledMatrix, DeviceResiduals],
     center: bool = True,
 ) -> MpGwasResults:
     """Batched per-SNP x per-phenotype scalar regressions on residuals.
 
     genotypes: (M, n) centered dosage rows (missing -> 0) on the compute
-    device, in its bulk dtype, aligned to residuals.row_labels; the
-    residuals go there in the same dtype.  The tests run in float64."""
-    lm = residuals.center_columns() if center else residuals
-    g = genotypes
-    y = torch.as_tensor(lm.values).to(device=g.device, dtype=g.dtype)
-    n = y.shape[0]
-    xtx, xty, yty = (_host(v) for v in _mp_core(g, y))
+    device, in its bulk dtype, aligned to the residuals' rows.  A
+    LabeledMatrix is centered (unless `center` is False) and goes there
+    in the same dtype on every call; DeviceResiduals are taken as they
+    are, already centered on that device in that dtype.  The tests run
+    in float64.
 
-    bad = xtx <= 0
-    xtx_safe = np.where(bad, np.inf, xtx)
-    beta = xty / xtx_safe[:, None]
-    df = n - 1.0
-    sse = yty[None, :] - beta * xty
-    mse = sse / df
-    se = np.sqrt(mse / xtx_safe[:, None])
-    t = beta / se
-    p = 2.0 * t_sf(df, np.abs(t))
+    Spans (runtime/timers.py): mp.product (X'X, X'y, y'y on the device),
+    mp.readback (the three to the host: waits for the device), mp.stats
+    (effects, SEs, t and the t tails on the host); counter mp.tests
+    (SNP x phenotype tests)."""
+    g = genotypes
+    if isinstance(residuals, LabeledMatrix):
+        lm = residuals.center_columns() if center else residuals
+        residuals = DeviceResiduals.upload(lm, g.device, g.dtype)
+    y = residuals.values
+    n = y.shape[0]
+    with timers.span("mp.product"):
+        products = _mp_core(g, y)
+    with timers.span("mp.readback"):
+        xtx, xty, yty = (_host(v) for v in products)
+
+    with timers.span("mp.stats"):
+        bad = xtx <= 0
+        xtx_safe = np.where(bad, np.inf, xtx)
+        beta = xty / xtx_safe[:, None]
+        df = n - 1.0
+        sse = yty[None, :] - beta * xty
+        mse = sse / df
+        se = np.sqrt(mse / xtx_safe[:, None])
+        t = beta / se
+        p = 2.0 * t_sf(df, np.abs(t))
+    timers.count("mp.tests", beta.size)
     return MpGwasResults(
         snp_names=list(snp_names),
-        phenotype_names=list(lm.col_labels),
+        phenotype_names=list(residuals.col_labels),
         beta=beta,
         se=se,
         t=t,

@@ -6,7 +6,7 @@ plain CPU operator of the profile (not a user annotation, which the
 profiler would mirror onto the device's timeline), stamped on the
 profiler's clock, with its parent, self time and the counters beside it.
 Each instrumented path (the PLINK scan, dense REML, the GRM build, the
-BGEN reader) records the spans and parent links PERF.md §3 lists, and
+BGEN reader, the multi-phenotype scan) records the spans and parent links PERF.md §3 lists, and
 gives bit for bit the results of an unprofiled run.
 """
 
@@ -18,14 +18,17 @@ import numpy as np
 import pytest
 import torch
 
-from dissect_tpu_torch.analysis.dispatcher import _chunked_gwas
+from dissect_tpu_torch.analysis import dispatcher
+from dissect_tpu_torch.analysis.dispatcher import Analysis, _chunked_gwas
 from dissect_tpu_torch.gwas.mlm import mlm_gwas_ml_refit
 from dissect_tpu_torch.io import bgen, grm_io
 from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, SnpInfo, read_plink, write_plink
+from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.io.phenotype import Phenotype
 from dissect_tpu_torch.model.kernels import Kernel, KernelType, grm_from_plink
 from dissect_tpu_torch.reml.single import SingleREML
 from dissect_tpu_torch.runtime import timers as timers_module
+from dissect_tpu_torch.runtime.options import Options
 from dissect_tpu_torch.runtime.timers import Timers, timers
 from tests.conftest import make_dosage
 
@@ -297,17 +300,43 @@ def bgen_read(tmp_path, monkeypatch):
     return run, expect, {"bgen.bytes_inflated"}
 
 
+def mp_scan(tmp_path, monkeypatch):
+    """Analysis.mp_gwas_scan (`--mpgwas` without its files): the residual
+    matrix over 60 of the 64 individuals, 30 SNPs in chunks of 12 (the
+    chunk rule's cap, GWAS_CHUNK_SNPS, set to 12 for N = 60)."""
+    monkeypatch.setattr(dispatcher, "GWAS_CHUNK_SNPS", 12)
+    prefix, rng = plink_cohort(tmp_path, n=64, m=30, seed=17)
+    keys = read_plink(prefix, device="cpu").individual_keys[4:]
+    LabeledMatrix(keys, ["pheno_1", "pheno_2", "pheno_3"],
+                  rng.normal(size=(60, 3))).save(str(tmp_path / "r.residuals"))
+    analysis = Analysis(Options.parse(["--mpgwas", "--bfile", prefix,
+                                       "--out", str(tmp_path / "r")]), CPU)
+
+    def run():
+        res, _ = analysis.mp_gwas_scan(str(tmp_path / "r.residuals"))
+        return {k: getattr(res, k) for k in ("beta", "se", "t", "p")}
+
+    expect = {("LoadGenotypes", None), ("plink.read", "LoadGenotypes"),
+              ("plink.open", "plink.read"), ("plink.read_text", "plink.read"),
+              ("mp.residuals", "LoadGenotypes"), ("plink.filter", "LoadGenotypes"),
+              ("plink.stats", "LoadGenotypes"), ("plink.gather", "plink.stats"),
+              ("GWAS", None), ("gwas.chunk", "GWAS"), ("gwas.decode", "gwas.chunk"),
+              ("plink.gather", "gwas.decode"), ("mp.product", "gwas.chunk"),
+              ("mp.readback", "gwas.chunk"), ("mp.stats", "gwas.chunk")}
+    return run, expect, {"plink.bytes_staged", "mp.tests", "mp.chunk_snps"}
+
+
 # path -> (SNP rows, packed bytes a row: ceil(N / 4) for the file's N individuals)
-STAGED = {"plink_scan": (48, 16), "grm_build": (70, 10)}
+STAGED = {"plink_scan": (48, 16), "grm_build": (70, 10), "mp_scan": (30, 16)}
 PATHS = {"plink_scan": plink_scan, "dense_reml": dense_reml, "grm_build": grm_build,
-         "bgen_read": bgen_read}
+         "bgen_read": bgen_read, "mp_scan": mp_scan}
 
 
 @pytest.mark.parametrize("path", list(PATHS))
 def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, monkeypatch,
                                                                       path):
     build = PATHS[path]
-    run, expect, counters = (build(tmp_path, monkeypatch) if path == "bgen_read"
+    run, expect, counters = (build(tmp_path, monkeypatch) if path in ("bgen_read", "mp_scan")
                              else build(tmp_path))
     plain = run()
     assert timers.records == [] and timers.summary()["counters"] == {}
@@ -325,7 +354,16 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
     if path in STAGED:
         # K5's pass and K4's each stage every row once (rows x bytes a row)
         rows, row_bytes = STAGED[path]
-        assert summary["counters"] == {"plink.bytes_staged": 2 * rows * row_bytes}
+        assert summary["counters"]["plink.bytes_staged"] == 2 * rows * row_bytes
+    if path == "mp_scan":
+        # 30 SNPs x 3 columns tested, in chunks of 12, 12 and 6; the chunk
+        # counted once a pass
+        assert summary["counters"] == {"plink.bytes_staged": 2 * 30 * 16, "mp.tests": 90,
+                                       "mp.chunk_snps": 12}
+        assert summary["spans"]["gwas.chunk"]["count"] == 3
+        assert summary["spans"]["mp.residuals"]["count"] == 1
+    elif path in STAGED:
+        assert set(summary["counters"]) == {"plink.bytes_staged"}
     if path == "bgen_read":
         # 20 variants in batches of 8; a layout-2 block of N = 30 samples
         # at 8 bits holds 10 + 3N bytes (BGEN v1.2: N, K, the ploidy

@@ -388,14 +388,13 @@ class Analysis:
         it."""
         stats = data.stats()
         if bool(stats.monomorphic.any()):
+            names = data.snp_names
             if not self.args.keep_zerostd_snps:
-                bad = [data.snps[i].name for i in np.nonzero(stats.monomorphic)[0][:10]]
+                bad = [names[i] for i in np.nonzero(stats.monomorphic)[0][:10]]
                 raise ValueError(
                     "monomorphic SNPs present (filter them first), e.g. " + ", ".join(bad)
                 )
-            data = data.filter(keep_snps=[
-                data.snps[i].name for i in np.nonzero(~stats.monomorphic)[0]
-            ])
+            data = data.filter(keep_snps=[names[i] for i in np.nonzero(~stats.monomorphic)[0]])
             stats = data.stats()
         self.log.message(f"GRM row-sharded over {ctx.world} ranks")
         n = data.n_individuals

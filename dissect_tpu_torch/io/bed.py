@@ -16,6 +16,11 @@ individual index (on the device, gathered by K4 and K5) and copies no
 genotypes; `append_snps` chains segments.  Standardization
 z = (d - 2 p) / sqrt(2 p (1 - p)), missing -> 0, runs fused on device.
 
+A .bim or .fam whose every line is six tokens is split into columns
+(`TextColumns`), whose SnpInfo / IndividualInfo records are made on first
+use; any other goes to the line parser (`read_bim`, `read_fam`), which
+gives the same records.
+
 Coding (parity with parseSNPbyte, genotype.cpp:741-787):
   2-bit 0b00 -> 0 copies of allele2   (reference internal code 1)
   2-bit 0b10 -> 1 copy  (het)         (internal 2)
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import List, Optional, Sequence, Union
+from typing import Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -70,6 +75,28 @@ class IndividualInfo:
     def key(self) -> str:
         """FID@IID join key (parity: kernel.cpp:74-76)."""
         return self.family_id + "@" + self.individual_id
+
+
+class TextColumns:
+    """A .bim's or .fam's fields as columns: `values` holds one sequence a
+    field of `record`, in the record's order, the numbers converted as the
+    line parser converts them.  `PlinkData` holds a parsed file so, and
+    makes its records only when they are first asked for."""
+
+    def __init__(self, record: type, values: Sequence[Sequence]):
+        self.record, self.values = record, values
+
+    def __len__(self) -> int:
+        return len(self.values[0])
+
+    def column(self, field: str) -> Sequence:
+        return self.values[[f.name for f in dataclasses.fields(self.record)].index(field)]
+
+    def records(self) -> list:
+        return list(map(self.record, *self.values))
+
+    def take(self, rows: List[int]) -> "TextColumns":
+        return TextColumns(self.record, [[v[i] for i in rows] for v in self.values])
 
 
 @dataclasses.dataclass
@@ -160,8 +187,8 @@ class PlinkData:
     (reference analog: block-row BED streaming, genotype.cpp:639-707).
     """
 
-    snps: List[SnpInfo]
-    individuals: List[IndividualInfo]
+    snps: List[SnpInfo]  # or the .bim's TextColumns, made records on first use
+    individuals: List[IndividualInfo]  # or the .fam's TextColumns, likewise
     bed_path: Optional[str] = None
     _dosage: dataclasses.InitVar[Optional[np.ndarray]] = None  # (M, N) int8, -1 = missing
     device: Union[str, torch.device] = "cuda"
@@ -170,6 +197,12 @@ class PlinkData:
 
     def __post_init__(self, _dosage):
         self.device = torch.device(self.device)
+        # "snps" / "individuals" -> its TextColumns, until `__getattr__`
+        # makes its records
+        self._columns = {}
+        for name in ("snps", "individuals"):
+            if isinstance(self.__dict__[name], TextColumns):
+                self._columns[name] = self.__dict__.pop(name)
         if self._segments is not None:
             return
         if _dosage is not None:
@@ -188,21 +221,45 @@ class PlinkData:
             _Segment(packed, self.n_individuals, np.arange(self.n_snps, dtype=np.int64), None)
         ]
 
+    def __getattr__(self, name):
+        """`snps` or `individuals` while held as columns: its records,
+        made once."""
+        held = self.__dict__.get("_columns", {})
+        columns = held.get(name)
+        if columns is None:
+            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+        # the columns go only once the records are in place, so a second
+        # thread that asks meanwhile makes them too rather than failing
+        records = self.__dict__[name] = columns.records()
+        held.pop(name, None)
+        return records
+
+    def _held(self, name: str) -> Union[TextColumns, list]:
+        """The columns of `name` while its records are not made, else them."""
+        return self._columns[name] if name in self._columns else getattr(self, name)
+
     @property
     def n_snps(self) -> int:
-        return len(self.snps)
+        return len(self._held("snps"))
 
     @property
     def n_individuals(self) -> int:
-        return len(self.individuals)
+        return len(self._held("individuals"))
 
     @property
     def individual_keys(self) -> List[str]:
-        return [ind.key for ind in self.individuals]
+        fam = self._held("individuals")
+        if isinstance(fam, TextColumns):  # IndividualInfo.key's FID@IID
+            return [f + "@" + i for f, i in zip(fam.column("family_id"),
+                                                fam.column("individual_id"))]
+        return [ind.key for ind in fam]
 
     @property
     def snp_names(self) -> List[str]:
-        return [s.name for s in self.snps]
+        bim = self._held("snps")
+        if isinstance(bim, TextColumns):
+            return list(bim.column("name"))
+        return [s.name for s in bim]
 
     # --- decode --------------------------------------------------------------
     def _bed_mmap(self) -> np.ndarray:
@@ -291,20 +348,20 @@ class PlinkData:
         """Subset by SNP names and/or FID@IID keys, keeping the given order:
         a view that composes the row and individual indexes (no genotype
         is copied or decoded)."""
-        snps, individuals, segments = self.snps, self.individuals, self._segments
-        stats = self._stats
+        snps, individuals = self._held("snps"), self._held("individuals")
+        segments, stats = self._segments, self._stats
         if keep_snps is not None:
-            index = {s.name: i for i, s in enumerate(self.snps)}
+            index = dict(zip(self.snp_names, range(self.n_snps)))
             snp_idx = np.array([index[n] for n in keep_snps], dtype=np.int64)
-            snps = [self.snps[i] for i in snp_idx]
+            snps = _take(snps, snp_idx.tolist())
             segments = _select_rows(segments, snp_idx)
             if stats is not None:
                 stats = SnpStats(*(getattr(stats, f.name)[snp_idx]
                                    for f in dataclasses.fields(SnpStats)))
         if keep_individuals is not None:
-            index = {ind.key: i for i, ind in enumerate(self.individuals)}
+            index = dict(zip(self.individual_keys, range(self.n_individuals)))
             ind_idx = np.array([index[k] for k in keep_individuals], dtype=np.int64)
-            individuals = [self.individuals[i] for i in ind_idx]
+            individuals = _take(individuals, ind_idx.tolist())
             if not np.array_equal(ind_idx, np.arange(self.n_individuals)):
                 segments = [_select_cols(seg, ind_idx, self.device) for seg in segments]
                 stats = None
@@ -325,6 +382,10 @@ class PlinkData:
             device=self.device,
             _segments=self._segments + other._segments,
         )
+
+
+def _take(rows: Union[TextColumns, list], picks: List[int]) -> Union[TextColumns, list]:
+    return rows.take(picks) if isinstance(rows, TextColumns) else [rows[i] for i in picks]
 
 
 def _select_rows(segments: List[_Segment], snp_idx: np.ndarray) -> List[_Segment]:
@@ -350,42 +411,94 @@ def _select_cols(seg: _Segment, ind_idx: np.ndarray, device) -> _Segment:
     return dataclasses.replace(seg, cols=cols.to(torch.int32).contiguous())
 
 
-def read_bim(path: str) -> List[SnpInfo]:
+def _bim_records(lines: Iterable[str]) -> List[SnpInfo]:
     snps = []
-    with open(path) as fh:
-        for line in fh:
-            parts = line.split()
-            if not parts:
-                continue
-            snps.append(
-                SnpInfo(
-                    chromosome=parts[0],
-                    name=parts[1],
-                    position_cm=float(parts[2]),
-                    position_bp=int(parts[3]),
-                    allele1=parts[4],
-                    allele2=parts[5],
-                )
+    for line in lines:
+        parts = line.split()
+        if not parts:
+            continue
+        snps.append(
+            SnpInfo(
+                chromosome=parts[0],
+                name=parts[1],
+                position_cm=float(parts[2]),
+                position_bp=int(parts[3]),
+                allele1=parts[4],
+                allele2=parts[5],
             )
+        )
     return snps
 
 
-def read_fam(path: str) -> List[IndividualInfo]:
+def _fam_records(lines: Iterable[str]) -> List[IndividualInfo]:
     individuals = []
-    with open(path) as fh:
-        for line in fh:
-            parts = line.split()
-            if not parts:
-                continue
-            individuals.append(IndividualInfo(*parts[:6]))
+    for line in lines:
+        parts = line.split()
+        if not parts:
+            continue
+        individuals.append(IndividualInfo(*parts[:6]))
     return individuals
+
+
+def read_bim(path: str) -> List[SnpInfo]:
+    """The .bim's records, a line at a time (`read_plink`'s parser for
+    files that are not six tokens a line)."""
+    with open(path) as fh:
+        return _bim_records(fh)
+
+
+def read_fam(path: str) -> List[IndividualInfo]:
+    """The .fam's records, a line at a time (as `read_bim`)."""
+    with open(path) as fh:
+        return _fam_records(fh)
+
+
+def _split_text(path: str, width: int):
+    """(columns, lines) of a .bim or .fam: `columns`, `width` lists of
+    str, where every line holds `width` whitespace-separated tokens (a
+    blank line does not), else None; `lines`, the file's lines.  Each
+    line's tokens are counted, then the whole text is split once: a
+    text-mode read ends lines where the line parser's does, and
+    str.split() splits them alike, so the columns hold the line parser's
+    tokens.  Counters: plink.text_bytes; plink.text_lines_fallback (the
+    lines of a file left to the line parser)."""
+    with open(path) as fh:
+        text = fh.read()
+        timers.count("plink.text_bytes", os.fstat(fh.fileno()).st_size)
+    lines = text.split("\n")
+    if lines[-1] == "":  # after the last line's newline
+        lines.pop()
+    if all(len(line.split()) == width for line in lines):
+        tokens = text.split()
+        return [tokens[c::width] for c in range(width)], lines
+    timers.count("plink.text_lines_fallback", len(lines))
+    return None, lines
+
+
+def read_bim_columns(path: str) -> Union[TextColumns, List[SnpInfo]]:
+    """The .bim by columns where every line is six tokens, else by the
+    line parser."""
+    columns, lines = _split_text(path, 6)
+    if columns is None:
+        return _bim_records(lines)
+    chromosome, name, cm, bp, allele1, allele2 = columns
+    return TextColumns(SnpInfo, [chromosome, name, list(map(float, cm)), list(map(int, bp)),
+                                 allele1, allele2])
+
+
+def read_fam_columns(path: str) -> Union[TextColumns, List[IndividualInfo]]:
+    """The .fam by columns where every line is six tokens, else by the
+    line parser."""
+    columns, lines = _split_text(path, 6)
+    return _fam_records(lines) if columns is None else TextColumns(IndividualInfo, columns)
 
 
 @timers.span("plink.read")
 def read_plink(prefix: str, device="cuda") -> PlinkData:
     """Load a .bed/.bim/.fam fileset; its payload stays memmap'd, and its
     genotypes decode on `device`.  Spans: plink.open (the .bed's magic),
-    plink.read_text (the .bim and .fam parse)."""
+    plink.read_text (the .bim and .fam parse, each file read and split
+    once, into columns; no parse is kept between calls)."""
     bed_path = prefix + ".bed"
     with timers.span("plink.open"):
         with open(bed_path, "rb") as fh:
@@ -395,7 +508,7 @@ def read_plink(prefix: str, device="cuda") -> PlinkData:
             f"{bed_path}: bad magic {magic!r} (expected SNP-major PLINK bed)"
         )
     with timers.span("plink.read_text"):
-        snps, individuals = read_bim(prefix + ".bim"), read_fam(prefix + ".fam")
+        snps, individuals = read_bim_columns(prefix + ".bim"), read_fam_columns(prefix + ".fam")
     return PlinkData(snps=snps, individuals=individuals, bed_path=bed_path, device=device)
 
 

@@ -336,14 +336,15 @@ def grm_from_plink(
     with timers.span("grm.stats"):
         stats = data.stats()
         if bool(stats.monomorphic.any()):
+            names = data.snp_names
             if drop_monomorphic:
                 # --keep-zerostd-snps analog: silently drop instead of the
                 # reference's .badsnps abort (genotype.cpp:915-940)
-                keep = [data.snps[i].name for i in np.nonzero(~stats.monomorphic)[0]]
+                keep = [names[i] for i in np.nonzero(~stats.monomorphic)[0]]
                 data = data.filter(keep_snps=keep)
                 stats = data.stats()
             else:
-                bad = [data.snps[i].name for i in np.nonzero(stats.monomorphic)[0][:10]]
+                bad = [names[i] for i in np.nonzero(stats.monomorphic)[0][:10]]
                 raise ValueError(
                     "monomorphic SNPs present (filter them first), e.g. " + ", ".join(bad)
                 )

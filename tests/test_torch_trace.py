@@ -188,6 +188,12 @@ def test_threads_keep_their_own_parents_and_lose_no_count(monkeypatch):
 
 
 # --- the instrumented paths --------------------------------------------------
+# a read_plink's counters: the .bed rows staged; under plink.read_text the
+# .bim and .fam bytes parsed (no plink.text_lines_fallback: write_plink's
+# files are six tokens a line, so no line goes to the line parser)
+PLINK_COUNTERS = {"plink.bytes_staged", "plink.text_bytes"}
+
+
 def plink_cohort(tmp_path, n, m, seed):
     rng = np.random.default_rng(seed)
     d = make_dosage(rng, m, n, missing_rate=0.02)
@@ -228,7 +234,7 @@ def plink_scan(tmp_path):
               ("gwas.fisher", "gwas.refit"), ("gwas.readback", "gwas.refit"),
               ("gwas.retry", "gwas.refit"), ("gwas.fisher", "gwas.retry"),
               ("gwas.pvalues", "gwas.refit")}
-    return run, expect, {"plink.bytes_staged"}
+    return run, expect, PLINK_COUNTERS
 
 
 def dense_reml(tmp_path):
@@ -275,7 +281,7 @@ def grm_build(tmp_path):
               ("grm.accumulate", None), ("plink.gather", "grm.accumulate"),
               ("grm.normalize", None), ("grm.sanitize", None), ("grm_io.read", None),
               ("eigen.diagonalize", None)}
-    return run, expect, {"plink.bytes_staged"}
+    return run, expect, PLINK_COUNTERS
 
 
 def bgen_read(tmp_path, monkeypatch):
@@ -323,7 +329,7 @@ def mp_scan(tmp_path, monkeypatch):
               ("GWAS", None), ("gwas.chunk", "GWAS"), ("gwas.decode", "gwas.chunk"),
               ("plink.gather", "gwas.decode"), ("mp.product", "gwas.chunk"),
               ("mp.readback", "gwas.chunk"), ("mp.stats", "gwas.chunk")}
-    return run, expect, {"plink.bytes_staged", "mp.tests", "mp.chunk_snps"}
+    return run, expect, PLINK_COUNTERS | {"mp.tests", "mp.chunk_snps"}
 
 
 # path -> (SNP rows, packed bytes a row: ceil(N / 4) for the file's N individuals)
@@ -355,15 +361,20 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
         # K5's pass and K4's each stage every row once (rows x bytes a row)
         rows, row_bytes = STAGED[path]
         assert summary["counters"]["plink.bytes_staged"] == 2 * rows * row_bytes
+        # one read_plink: its .bim and .fam parsed once each, by columns
+        text = sum((tmp_path / f"cohort.{ext}").stat().st_size for ext in ("bim", "fam"))
+        assert summary["counters"]["plink.text_bytes"] == text
+        assert "plink.text_lines_fallback" not in summary["counters"]
+        assert summary["spans"]["plink.read_text"]["count"] == 1
     if path == "mp_scan":
         # 30 SNPs x 3 columns tested, in chunks of 12, 12 and 6; the chunk
         # counted once a pass
         assert summary["counters"] == {"plink.bytes_staged": 2 * 30 * 16, "mp.tests": 90,
-                                       "mp.chunk_snps": 12}
+                                       "mp.chunk_snps": 12, "plink.text_bytes": text}
         assert summary["spans"]["gwas.chunk"]["count"] == 3
         assert summary["spans"]["mp.residuals"]["count"] == 1
     elif path in STAGED:
-        assert set(summary["counters"]) == {"plink.bytes_staged"}
+        assert set(summary["counters"]) == PLINK_COUNTERS
     if path == "bgen_read":
         # 20 variants in batches of 8; a layout-2 block of N = 30 samples
         # at 8 bits holds 10 + 3N bytes (BGEN v1.2: N, K, the ploidy

@@ -143,6 +143,13 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# Each kernel's bound beside its time: the least time one H100 SXM could
+# take for its work, from the card's peaks.  One copy, which the
+# benchmark's roofline metrics read too; tests/test_torch_bounds.py checks
+# it through this module, bound_ms and _needed_entries included.
+from portbench.rooflines import (bgen_bound, bound_ms, k1_bound, k2_bound, k3_bound, k4_bound,
+                                 k5_bound, needed_entries as _needed_entries)
+
 REPO = Path(__file__).resolve().parent
 N_INDIVIDUALS = 10_000
 N_SNPS = 50_000
@@ -176,12 +183,6 @@ BGEN_L1_N = 2_000
 BGEN_L1_GRM_ATOL = 1e-3
 BLOCK_N = 512     # grm_accumulator's packed tile edge
 
-# One NVIDIA H100 SXM (NVIDIA data sheet, dense rates): float32 outside the
-# tensor cores, int8 on the tensor cores, and HBM bandwidth, at the full
-# 700 W power limit.
-PEAK_FP32_FLOPS = 67e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES_PER_S = 3.35e12
 # A held timing first spins the stream this many clock cycles, about
 # 0.1 s at the H100's 1.98 GHz boost clock.
 HOLD_CYCLES = 200_000_000
@@ -265,41 +266,6 @@ def time_ms(fn, iters=10, warmup=2, held=False):
     return start.elapsed_time(stop) / iters
 
 
-def bound_ms(n_bytes, fp32_flops, int8_ops=0):
-    """The least time the card could take: the largest of the bytes at the
-    memory rate and each pipe's operations at its peak rate."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = max(fp32_flops / PEAK_FP32_FLOPS, int8_ops / PEAK_INT8_OPS) * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
-
-def k1_bound(m, n, block_n):
-    """K1: Z^T Z on the float32 pipes and the exact 0/1 counts O^T O on the
-    int8 tensor cores, each over the lower triangle's entries; the int8
-    chunk read, both packed buffers read and written."""
-    from dissect_tpu_torch.linalg.grm_kernels import packed_shape
-
-    entries = _needed_entries(n, block_n)
-    rows, cols = packed_shape(n, block_n)
-    n_bytes = m * n + 2 * m * 4 + 2 * 2 * rows * cols * 4
-    return bound_ms(n_bytes, 2 * m * entries, 2 * m * entries)
-
-
-def k2_bound(m, n, block_n):
-    """K2: Z^T Z in float32 over the lower triangle; z read, tiles written."""
-    from dissect_tpu_torch.linalg.grm_kernels import packed_shape
-
-    rows, cols = packed_shape(n, block_n)
-    return bound_ms(4 * m * n + 4 * rows * cols, 2 * m * _needed_entries(n, block_n))
-
-
-def k3_bound(m, n, q, k_feats):
-    """K3: one FMA per output column per element of g, all in float32."""
-    total = 2 * k_feats + 3 * q + 3
-    n_bytes = 4 * (m * n + 2 * m + n + n * q + n * k_feats + m * total)
-    return bound_ms(n_bytes, 2 * total * m * n)
-
-
 # ----------------------------------------------------------------- phase 1 --
 def phase_build():
     from dissect_tpu_torch.runtime import cuda_lib
@@ -331,18 +297,6 @@ def _snp_scaling(d):
     mean = (2.0 * p2).to(torch.float32)
     inv_std = (1.0 / torch.sqrt(2.0 * p2 * (1.0 - p2))).to(torch.float32)
     return mean, inv_std
-
-
-def _needed_entries(n, block_n):
-    """GRM entries one K1 call must compute: the whole of each off-diagonal
-    tile, and the lower triangle of each diagonal tile (its strict upper
-    half is the transpose).  Sums to n(n+1)/2."""
-    nt = -(-n // block_n)
-    imap, jmap = np.tril_indices(nt)
-    rows = np.minimum(block_n, n - imap * block_n)
-    cols = np.minimum(block_n, n - jmap * block_n)
-    entries = np.where(imap == jmap, rows * (rows + 1) // 2, rows * cols)
-    return int(entries.sum())
 
 
 def compare_k1(gen, m, n, block_n, device, timed):
@@ -525,26 +479,8 @@ def compare_k3(gen, m, n, q, device, timed, iters=10):
 # K4-K7, the genotype decoders (io/genotype_kernels.py): bit-exact against
 # their plain versions, so the check is equality, with NaN positions equal.
 # They move bytes and do next to no arithmetic: each bound is the bytes
-# read once and written once at the memory rate.
-def k4_bound(m, n, n_out=None):
-    """K4: the packed rows read, the int8 dosages written, the int32
-    individual index read when there is one."""
-    cols = 0 if n_out is None else 4 * n_out
-    return bound_ms(m * ((n + 3) // 4) + m * (n if n_out is None else n_out) + cols, 0)
-
-
-def k5_bound(m, n, n_out=None):
-    """K5: the packed rows read, 4 int64 counts a row written, the index
-    read when there is one."""
-    return bound_ms(m * ((n + 3) // 4) + 32 * m + (0 if n_out is None else 4 * n_out), 0)
-
-
-def bgen_bound(n_bytes, n_variants, n_samples):
-    """K6, K7: the blocks' bytes, their int64 offsets and lengths read;
-    the float32 dosages and int32 statuses written."""
-    return bound_ms(n_bytes + 16 * n_variants + 4 * n_variants * n_samples + 4 * n_variants, 0)
-
-
+# read once and written once at the memory rate (k4_bound, k5_bound,
+# bgen_bound).
 def _packed_on_card(gen, m, n, device, row_offset=0):
     """(m, ceil(n/4)) random .bed rows, the last byte's unused codes
     random too, and row 1 all missing; with row_offset, a view that starts
@@ -2164,11 +2100,11 @@ MESH_VS_K1_REML_RTOL = 1e-6
 # whole cohort, its operands row-sharded over the ranks.
 MESH_EIGH_N = N_INDIVIDUALS
 # The whole-operand solver's per-rank peak in planes of N^2 * 8 bytes,
-# measured by eigh_memory.py at N = 10,000 on two ranks sharing an NVIDIA
-# H100 80GB HBM3 (700 W): the solver before its operands were row-sharded,
-# the whole float32 matrix on each rank at entry (PERF.md).  The
-# row-sharded solver's peak must stay within 1/MESH_RANKS of it plus two
-# planes.
+# measured at N = 10,000 on two ranks sharing an NVIDIA H100 80GB HBM3
+# (700 W): the solver before its operands were row-sharded, the whole
+# float32 matrix on each rank at entry (CHANGES.md, the entry that
+# row-sharded the D&C eigensolver; PERF.md).  The row-sharded solver's
+# peak must stay within 1/MESH_RANKS of it plus two planes.
 WHOLE_OPERAND_EIGH_PLANES = 10.4153856
 # SNP rows per block of the first-pass reading's plain routes (float64
 # temporaries of 0.4 GB each at n = 10,000)

@@ -19,7 +19,6 @@ runs `plain_refit_moments` only for tensors on the CPU.
 
 from __future__ import annotations
 
-import ctypes
 from collections import Counter
 
 import torch
@@ -162,7 +161,7 @@ def prepare_refit_moments(g, thetas, lam, s, feats):
     out = torch.empty((m, total), dtype=torch.float32, device=device)
     if m == 0 or n == 0:
         return lambda: out.zero_()  # nothing to launch
-    lib = _library()
+    kernel = cuda_lib.entry("refit_moments", "fused_refit_moments", 5, 9)
     y = pack_shared_columns(lam, s, feats)
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
     row_blocks, chunks, splits, per = refit_geometry(m, n, q, k_feats, sm_count)
@@ -172,7 +171,7 @@ def prepare_refit_moments(g, thetas, lam, s, feats):
 
     def launch():
         with torch.cuda.device(device):
-            rc = lib.fused_refit_moments(
+            rc = kernel(
                 g.data_ptr(), thetas.data_ptr(), y.data_ptr(), out.data_ptr(), partial.data_ptr(),
                 m, n, q, k_feats, row_blocks, chunks, splits, per, int(vec),
                 cuda_lib.stream_handle(device),
@@ -189,11 +188,3 @@ def prepare_refit_moments(g, thetas, lam, s, feats):
 # launches of the kernel, in all and by row count M
 fused_refit_moments.launches = 0
 fused_refit_moments.launches_by_rows = Counter()
-
-
-def _library():
-    lib = cuda_lib.load("refit_moments")
-    fn = lib.fused_refit_moments
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    return lib

@@ -16,10 +16,12 @@ individual index (on the device, gathered by K4 and K5) and copies no
 genotypes; `append_snps` chains segments.  Standardization
 z = (d - 2 p) / sqrt(2 p (1 - p)), missing -> 0, runs fused on device.
 
-A .bim or .fam whose every line is six tokens is split into columns
-(`TextColumns`), whose SnpInfo / IndividualInfo records are made on first
-use; any other goes to the line parser (`read_bim`, `read_fam`), which
-gives the same records.
+A fileset's .bim and .fam are held as columns (`TextColumns`), however
+the fileset was made: `parse_bim`/`parse_fam` split a file into them
+(the whole text at once where every line is six tokens, line by line
+otherwise), and a PlinkData built from SnpInfo / IndividualInfo lists
+converts them once.  Counts, names, keys, filters and appends read the
+columns; the records (`snps`, `individuals`) are made on first use.
 
 Coding (parity with parseSNPbyte, genotype.cpp:741-787):
   2-bit 0b00 -> 0 copies of allele2   (reference internal code 1)
@@ -33,8 +35,9 @@ std = sqrt(2 p1 (1 - p1)) == sqrt(2 p2 (1 - p2)) (genotype.cpp:736-738).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
-from typing import Iterable, List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -78,13 +81,20 @@ class IndividualInfo:
 
 
 class TextColumns:
-    """A .bim's or .fam's fields as columns: `values` holds one sequence a
-    field of `record`, in the record's order, the numbers converted as the
-    line parser converts them.  `PlinkData` holds a parsed file so, and
-    makes its records only when they are first asked for."""
+    """A .bim's or .fam's fields as columns: `values` holds one list a
+    field of `record`, in the record's order (parsed from a file, cM as
+    float and bp as int).  `PlinkData` holds its tables so, and makes
+    their records only when first asked for."""
 
     def __init__(self, record: type, values: Sequence[Sequence]):
         self.record, self.values = record, values
+
+    @classmethod
+    def from_records(cls, record: type, rows: Sequence) -> "TextColumns":
+        """The columns of `rows`, records of type `record`, their values as
+        they are."""
+        return cls(record, [[getattr(r, f.name) for r in rows]
+                            for f in dataclasses.fields(record)])
 
     def __len__(self) -> int:
         return len(self.values[0])
@@ -97,6 +107,9 @@ class TextColumns:
 
     def take(self, rows: List[int]) -> "TextColumns":
         return TextColumns(self.record, [[v[i] for i in rows] for v in self.values])
+
+    def __add__(self, other: "TextColumns") -> "TextColumns":
+        return TextColumns(self.record, [[*a, *b] for a, b in zip(self.values, other.values)])
 
 
 @dataclasses.dataclass
@@ -174,35 +187,38 @@ class _Segment:
                              f"outside the {self.packed.shape[0]} packed rows")
 
 
-@dataclasses.dataclass
 class PlinkData:
     """A loaded PLINK fileset: metadata on the host, genotypes decoded on
     `device` in chunks of SNP rows.
 
-    `decode_rows` gives a chunk as a device tensor (kernel K4 on the
-    card); `decode_chunk` and `dosages()` give it as numpy, for the host
-    workflows; `stats()` counts genotypes with kernel K5.  A PlinkData
-    built from an in-memory `_dosage` matrix packs it once, with the
-    encoder `write_plink` uses, and decodes through K4 like a file
+    The .bim and .fam tables are held as columns (`bim`, `fam`); a
+    fileset built from `snps` / `individuals` lists of records converts
+    them once.  `decode_rows` gives a chunk as a device tensor (kernel K4
+    on the card); `decode_chunk` and `dosages()` give it as numpy, for
+    the host workflows; `stats()` counts genotypes with kernel K5.  A
+    PlinkData built from an in-memory `_dosage` matrix packs it once, with
+    the encoder `write_plink` uses, and decodes through K4 like a file
     (reference analog: block-row BED streaming, genotype.cpp:639-707).
     """
 
-    snps: List[SnpInfo]  # or the .bim's TextColumns, made records on first use
-    individuals: List[IndividualInfo]  # or the .fam's TextColumns, likewise
-    bed_path: Optional[str] = None
-    _dosage: dataclasses.InitVar[Optional[np.ndarray]] = None  # (M, N) int8, -1 = missing
-    device: Union[str, torch.device] = "cuda"
-    _segments: Optional[List[_Segment]] = dataclasses.field(default=None, repr=False)
-    _stats: Optional[SnpStats] = dataclasses.field(default=None, repr=False)
-
-    def __post_init__(self, _dosage):
-        self.device = torch.device(self.device)
-        # "snps" / "individuals" -> its TextColumns, until `__getattr__`
-        # makes its records
-        self._columns = {}
-        for name in ("snps", "individuals"):
-            if isinstance(self.__dict__[name], TextColumns):
-                self._columns[name] = self.__dict__.pop(name)
+    def __init__(
+        self,
+        snps: Optional[Sequence[SnpInfo]] = None,
+        individuals: Optional[Sequence[IndividualInfo]] = None,
+        bed_path: Optional[str] = None,
+        _dosage: Optional[np.ndarray] = None,  # (M, N) int8, -1 = missing
+        device: Union[str, torch.device] = "cuda",
+        *,
+        bim: Optional[TextColumns] = None,
+        fam: Optional[TextColumns] = None,
+        _segments: Optional[List[_Segment]] = None,
+        _stats: Optional[SnpStats] = None,
+    ):
+        self.bim = bim if snps is None else TextColumns.from_records(SnpInfo, snps)
+        self.fam = fam if individuals is None else TextColumns.from_records(IndividualInfo,
+                                                                            individuals)
+        self.bed_path, self.device = bed_path, torch.device(device)
+        self._segments, self._stats = _segments, _stats
         if self._segments is not None:
             return
         if _dosage is not None:
@@ -221,45 +237,33 @@ class PlinkData:
             _Segment(packed, self.n_individuals, np.arange(self.n_snps, dtype=np.int64), None)
         ]
 
-    def __getattr__(self, name):
-        """`snps` or `individuals` while held as columns: its records,
-        made once."""
-        held = self.__dict__.get("_columns", {})
-        columns = held.get(name)
-        if columns is None:
-            raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
-        # the columns go only once the records are in place, so a second
-        # thread that asks meanwhile makes them too rather than failing
-        records = self.__dict__[name] = columns.records()
-        held.pop(name, None)
-        return records
+    @functools.cached_property
+    def snps(self) -> List[SnpInfo]:
+        """The .bim's records, made on first use."""
+        return self.bim.records()
 
-    def _held(self, name: str) -> Union[TextColumns, list]:
-        """The columns of `name` while its records are not made, else them."""
-        return self._columns[name] if name in self._columns else getattr(self, name)
+    @functools.cached_property
+    def individuals(self) -> List[IndividualInfo]:
+        """The .fam's records, made on first use."""
+        return self.fam.records()
 
     @property
     def n_snps(self) -> int:
-        return len(self._held("snps"))
+        return len(self.bim)
 
     @property
     def n_individuals(self) -> int:
-        return len(self._held("individuals"))
+        return len(self.fam)
 
     @property
     def individual_keys(self) -> List[str]:
-        fam = self._held("individuals")
-        if isinstance(fam, TextColumns):  # IndividualInfo.key's FID@IID
-            return [f + "@" + i for f, i in zip(fam.column("family_id"),
-                                                fam.column("individual_id"))]
-        return [ind.key for ind in fam]
+        """IndividualInfo.key's FID@IID of each individual."""
+        return [f + "@" + i for f, i in zip(self.fam.column("family_id"),
+                                            self.fam.column("individual_id"))]
 
     @property
     def snp_names(self) -> List[str]:
-        bim = self._held("snps")
-        if isinstance(bim, TextColumns):
-            return list(bim.column("name"))
-        return [s.name for s in bim]
+        return list(self.bim.column("name"))
 
     # --- decode --------------------------------------------------------------
     def _bed_mmap(self) -> np.ndarray:
@@ -348,12 +352,12 @@ class PlinkData:
         """Subset by SNP names and/or FID@IID keys, keeping the given order:
         a view that composes the row and individual indexes (no genotype
         is copied or decoded)."""
-        snps, individuals = self._held("snps"), self._held("individuals")
+        bim, fam = self.bim, self.fam
         segments, stats = self._segments, self._stats
         if keep_snps is not None:
             index = dict(zip(self.snp_names, range(self.n_snps)))
             snp_idx = np.array([index[n] for n in keep_snps], dtype=np.int64)
-            snps = _take(snps, snp_idx.tolist())
+            bim = bim.take(snp_idx.tolist())
             segments = _select_rows(segments, snp_idx)
             if stats is not None:
                 stats = SnpStats(*(getattr(stats, f.name)[snp_idx]
@@ -361,12 +365,11 @@ class PlinkData:
         if keep_individuals is not None:
             index = dict(zip(self.individual_keys, range(self.n_individuals)))
             ind_idx = np.array([index[k] for k in keep_individuals], dtype=np.int64)
-            individuals = _take(individuals, ind_idx.tolist())
+            fam = fam.take(ind_idx.tolist())
             if not np.array_equal(ind_idx, np.arange(self.n_individuals)):
                 segments = [_select_cols(seg, ind_idx, self.device) for seg in segments]
                 stats = None
-        return PlinkData(snps=snps, individuals=individuals, device=self.device,
-                         _segments=segments, _stats=stats)
+        return PlinkData(bim=bim, fam=fam, device=self.device, _segments=segments, _stats=stats)
 
     def append_snps(self, other: "PlinkData") -> "PlinkData":
         """Concatenate SNP rows of two filesets over identical individuals
@@ -376,16 +379,8 @@ class PlinkData:
             raise ValueError("append_snps requires identical individuals")
         if other.device != self.device:
             raise ValueError(f"append_snps across devices ({self.device}, {other.device})")
-        return PlinkData(
-            snps=self.snps + other.snps,
-            individuals=self.individuals,
-            device=self.device,
-            _segments=self._segments + other._segments,
-        )
-
-
-def _take(rows: Union[TextColumns, list], picks: List[int]) -> Union[TextColumns, list]:
-    return rows.take(picks) if isinstance(rows, TextColumns) else [rows[i] for i in picks]
+        return PlinkData(bim=self.bim + other.bim, fam=self.fam, device=self.device,
+                         _segments=self._segments + other._segments)
 
 
 def _select_rows(segments: List[_Segment], snp_idx: np.ndarray) -> List[_Segment]:
@@ -411,57 +406,14 @@ def _select_cols(seg: _Segment, ind_idx: np.ndarray, device) -> _Segment:
     return dataclasses.replace(seg, cols=cols.to(torch.int32).contiguous())
 
 
-def _bim_records(lines: Iterable[str]) -> List[SnpInfo]:
-    snps = []
-    for line in lines:
-        parts = line.split()
-        if not parts:
-            continue
-        snps.append(
-            SnpInfo(
-                chromosome=parts[0],
-                name=parts[1],
-                position_cm=float(parts[2]),
-                position_bp=int(parts[3]),
-                allele1=parts[4],
-                allele2=parts[5],
-            )
-        )
-    return snps
-
-
-def _fam_records(lines: Iterable[str]) -> List[IndividualInfo]:
-    individuals = []
-    for line in lines:
-        parts = line.split()
-        if not parts:
-            continue
-        individuals.append(IndividualInfo(*parts[:6]))
-    return individuals
-
-
-def read_bim(path: str) -> List[SnpInfo]:
-    """The .bim's records, a line at a time (`read_plink`'s parser for
-    files that are not six tokens a line)."""
-    with open(path) as fh:
-        return _bim_records(fh)
-
-
-def read_fam(path: str) -> List[IndividualInfo]:
-    """The .fam's records, a line at a time (as `read_bim`)."""
-    with open(path) as fh:
-        return _fam_records(fh)
-
-
 def _split_text(path: str, width: int):
     """(columns, lines) of a .bim or .fam: `columns`, `width` lists of
     str, where every line holds `width` whitespace-separated tokens (a
     blank line does not), else None; `lines`, the file's lines.  Each
     line's tokens are counted, then the whole text is split once: a
-    text-mode read ends lines where the line parser's does, and
-    str.split() splits them alike, so the columns hold the line parser's
-    tokens.  Counters: plink.text_bytes; plink.text_lines_fallback (the
-    lines of a file left to the line parser)."""
+    text-mode read ends lines where a line-by-line read does, and
+    str.split() splits them alike, so the columns hold that read's
+    tokens.  Counter: plink.text_bytes."""
     with open(path) as fh:
         text = fh.read()
         timers.count("plink.text_bytes", os.fstat(fh.fileno()).st_size)
@@ -471,26 +423,34 @@ def _split_text(path: str, width: int):
     if all(len(line.split()) == width for line in lines):
         tokens = text.split()
         return [tokens[c::width] for c in range(width)], lines
-    timers.count("plink.text_lines_fallback", len(lines))
     return None, lines
 
 
-def read_bim_columns(path: str) -> Union[TextColumns, List[SnpInfo]]:
-    """The .bim by columns where every line is six tokens, else by the
-    line parser."""
+def parse_bim(path: str) -> TextColumns:
+    """The .bim's columns.  A file that is not six tokens on every line is
+    read line by line by the JAX package's rules (dissect_tpu/io/bed.py):
+    blank lines skipped, the first six tokens kept, a short line refused
+    with IndexError, a cM or bp that float/int refuse with ValueError."""
     columns, lines = _split_text(path, 6)
     if columns is None:
-        return _bim_records(lines)
+        return TextColumns.from_records(SnpInfo, [
+            SnpInfo(p[0], p[1], float(p[2]), int(p[3]), p[4], p[5])
+            for p in map(str.split, lines) if p])
     chromosome, name, cm, bp, allele1, allele2 = columns
     return TextColumns(SnpInfo, [chromosome, name, list(map(float, cm)), list(map(int, bp)),
                                  allele1, allele2])
 
 
-def read_fam_columns(path: str) -> Union[TextColumns, List[IndividualInfo]]:
-    """The .fam by columns where every line is six tokens, else by the
-    line parser."""
+def parse_fam(path: str) -> TextColumns:
+    """The .fam's columns.  A file that is not six tokens on every line is
+    read line by line by the JAX package's rules, as `parse_bim`: a short
+    line takes IndividualInfo's defaults, a one-token line is refused with
+    TypeError."""
     columns, lines = _split_text(path, 6)
-    return _fam_records(lines) if columns is None else TextColumns(IndividualInfo, columns)
+    if columns is None:
+        return TextColumns.from_records(IndividualInfo, [
+            IndividualInfo(*p[:6]) for p in map(str.split, lines) if p])
+    return TextColumns(IndividualInfo, columns)
 
 
 @timers.span("plink.read")
@@ -508,8 +468,8 @@ def read_plink(prefix: str, device="cuda") -> PlinkData:
             f"{bed_path}: bad magic {magic!r} (expected SNP-major PLINK bed)"
         )
     with timers.span("plink.read_text"):
-        snps, individuals = read_bim_columns(prefix + ".bim"), read_fam_columns(prefix + ".fam")
-    return PlinkData(snps=snps, individuals=individuals, bed_path=bed_path, device=device)
+        bim, fam = parse_bim(prefix + ".bim"), parse_fam(prefix + ".fam")
+    return PlinkData(bim=bim, fam=fam, bed_path=bed_path, device=device)
 
 
 def write_plink(prefix: str, data: PlinkData):

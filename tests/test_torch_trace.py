@@ -189,8 +189,7 @@ def test_threads_keep_their_own_parents_and_lose_no_count(monkeypatch):
 
 # --- the instrumented paths --------------------------------------------------
 # a read_plink's counters: the .bed rows staged; under plink.read_text the
-# .bim and .fam bytes parsed (no plink.text_lines_fallback: write_plink's
-# files are six tokens a line, so no line goes to the line parser)
+# .bim and .fam bytes parsed
 PLINK_COUNTERS = {"plink.bytes_staged", "plink.text_bytes"}
 
 
@@ -361,10 +360,9 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
         # K5's pass and K4's each stage every row once (rows x bytes a row)
         rows, row_bytes = STAGED[path]
         assert summary["counters"]["plink.bytes_staged"] == 2 * rows * row_bytes
-        # one read_plink: its .bim and .fam parsed once each, by columns
+        # one read_plink: its .bim and .fam parsed once each
         text = sum((tmp_path / f"cohort.{ext}").stat().st_size for ext in ("bim", "fam"))
         assert summary["counters"]["plink.text_bytes"] == text
-        assert "plink.text_lines_fallback" not in summary["counters"]
         assert summary["spans"]["plink.read_text"]["count"] == 1
     if path == "mp_scan":
         # 30 SNPs x 3 columns tested, in chunks of 12, 12 and 6; the chunk

@@ -211,6 +211,52 @@ def test_spd_functions_match_jax():
     assert not spd.cholesky_logdet(torch.as_tensor(indefinite))[2]
 
 
+def _small_route(monkeypatch, min_n, leaf, align):
+    """The triangular inverse taken above `min_n` rows, recursing down to
+    leaves of `leaf` rows split at multiples of `align`."""
+    monkeypatch.setattr(spd, "TRIANGULAR_INVERSE_MIN_N", min_n)
+    monkeypatch.setattr(spd, "TRIANGULAR_LEAF", leaf)
+    monkeypatch.setattr(spd, "TRIANGULAR_ALIGN", align)
+
+
+def _well_conditioned_spd(n):
+    a = np.random.default_rng(n).normal(size=(n, n))
+    return a @ a.T / n + np.eye(n)
+
+
+@pytest.mark.parametrize("leaf,align", [(4, 2), (512, 256)])
+@pytest.mark.parametrize("n", [1, 7, 64, 257, 600])
+def test_the_triangular_inverse_is_the_cholesky_inverse(monkeypatch, n, leaf, align):
+    """spd_inverse_logdet above a lowered size (leaves of 4 rows, or the
+    module's 512, which splits only n = 600): torch.cholesky_inverse's
+    and numpy's inverse to 1e-12 of the largest entry, exactly
+    symmetric, the same log-det, formed in the factor's storage."""
+    v = torch.as_tensor(_well_conditioned_spd(n))
+    ref, ref_logdet, _ = spd.spd_inverse_logdet(v)
+    _small_route(monkeypatch, 0, leaf, align)
+    vi, logdet, ok = spd.spd_inverse_logdet(v)
+    assert ok and torch.equal(vi, vi.mT)
+    assert logdet.item() == ref_logdet.item()
+    scale = float(ref.abs().max())
+    np.testing.assert_allclose(vi.numpy(), ref.numpy(), rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(vi.numpy(), np.linalg.inv(v.numpy()), rtol=0, atol=1e-12 * scale)
+    chol = spd.cholesky_logdet(v)[0]
+    assert spd.triangular_inverse_(chol).data_ptr() == chol.data_ptr()
+
+
+def test_v_at_the_size_limit_or_batched_keeps_cholesky_inverse(monkeypatch):
+    """At TRIANGULAR_INVERSE_MIN_N rows, and for a batch of any size, the
+    inverse is torch.cholesky_inverse's, bit for bit."""
+    v = torch.as_tensor(_well_conditioned_spd(40))
+    chol = spd.cholesky_logdet(v)[0]
+    monkeypatch.setattr(spd, "TRIANGULAR_INVERSE_MIN_N", 40)
+    assert torch.equal(spd.spd_inverse_logdet(v)[0], torch.cholesky_inverse(chol))
+    monkeypatch.setattr(spd, "TRIANGULAR_INVERSE_MIN_N", 0)
+    batch = torch.stack([v, 2 * v])
+    assert torch.equal(spd.spd_inverse_logdet(batch)[0],
+                       torch.cholesky_inverse(spd.cholesky_logdet(batch)[0]))
+
+
 def _kernels(c):
     ours = [Kernel(name=nm, type=KernelType.GRM, individual_keys=c["keys"],
                    matrix=torch.as_tensor(m)) for nm, m in zip(NAMES, c["mats"])]
@@ -229,6 +275,23 @@ def _single_remls(c, **kw):
 def test_dense_fit_matches_jax(cohort):
     """SingleREML with three dense kernels, end to end: variances, logL,
     iterations, AI inverse and the summary rows."""
+    _assert_dense_fit_matches_jax(cohort)
+
+
+def test_dense_fit_through_the_triangular_inverse_matches_jax(cohort, monkeypatch):
+    """The same fit with V (n = 120) above a lowered size, so each
+    evaluation's V^-1 comes from the recursive trtri and lauum (leaves of
+    16 rows) and X'V^-1X's (2 x 2) from torch.cholesky_inverse."""
+    _small_route(monkeypatch, 64, 16, 8)
+    sizes = []
+    inverse = spd.triangular_inverse_
+    monkeypatch.setattr(spd, "triangular_inverse_",
+                        lambda chol: sizes.append(chol.shape[0]) or inverse(chol))
+    ours = _assert_dense_fit_matches_jax(cohort)
+    assert sizes == [cohort["n"]] * ours.result.n_iterations
+
+
+def _assert_dense_fit_matches_jax(cohort):
     ours_single, theirs_single = _single_remls(cohort)
     ours = ours_single.compute(compute_blue=False)
     theirs = theirs_single.compute(compute_blue=False)
@@ -241,6 +304,7 @@ def test_dense_fit_matches_jax(cohort):
     for a, b in zip(ours.heritabilities, theirs.heritabilities):
         assert a.name == b.name
         np.testing.assert_allclose([a.value, a.std_error], [b.value, b.std_error], rtol=1e-5)
+    return ours
 
 
 def _post_fit_engines(c, diagonal):

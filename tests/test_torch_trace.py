@@ -25,6 +25,7 @@ from dissect_tpu_torch.io import bgen, grm_io
 from dissect_tpu_torch.io.bed import IndividualInfo, PlinkData, SnpInfo, read_plink, write_plink
 from dissect_tpu_torch.io.labeled_matrix import LabeledMatrix
 from dissect_tpu_torch.io.phenotype import Phenotype
+from dissect_tpu_torch.linalg import spd
 from dissect_tpu_torch.model.kernels import Kernel, KernelType, grm_from_plink
 from dissect_tpu_torch.reml.single import SingleREML
 from dissect_tpu_torch.runtime import timers as timers_module
@@ -252,10 +253,21 @@ def dense_reml(tmp_path):
         out = SingleREML([kern], pheno, device="cpu").compute(compute_blue=True,
                                                               compute_blup=True)
         return {"theta": out.result.variances, "logl": np.array(out.result.log_likelihood),
-                "blue": out.blue, "blue_se": out.blue_se, "blup": out.blup["GRM"]}
+                "blue": out.blue, "blue_se": out.blue_se, "blup": out.blup["GRM"],
+                "iterations": np.array(out.result.n_iterations)}
 
     expect = {("REML", None), ("reml.quantities", "REML"), ("BLUE/BLUP", None)}
     return run, expect, set()
+
+
+def dense_reml_triangular(tmp_path, monkeypatch):
+    """dense_reml with its V (N = 80) above a lowered size for the
+    triangular inverse, in leaves of 16 rows: each evaluation counts one."""
+    monkeypatch.setattr(spd, "TRIANGULAR_INVERSE_MIN_N", 64)
+    monkeypatch.setattr(spd, "TRIANGULAR_LEAF", 16)
+    monkeypatch.setattr(spd, "TRIANGULAR_ALIGN", 8)
+    run, expect, _ = dense_reml(tmp_path)
+    return run, expect, {"spd.triangular_inverses"}
 
 
 def grm_build(tmp_path):
@@ -334,14 +346,16 @@ def mp_scan(tmp_path, monkeypatch):
 # path -> (SNP rows, packed bytes a row: ceil(N / 4) for the file's N individuals)
 STAGED = {"plink_scan": (48, 16), "grm_build": (70, 10), "mp_scan": (30, 16)}
 PATHS = {"plink_scan": plink_scan, "dense_reml": dense_reml, "grm_build": grm_build,
-         "bgen_read": bgen_read, "mp_scan": mp_scan}
+         "bgen_read": bgen_read, "mp_scan": mp_scan,
+         "dense_reml_triangular": dense_reml_triangular}
+WITH_MONKEYPATCH = ("bgen_read", "mp_scan", "dense_reml_triangular")
 
 
 @pytest.mark.parametrize("path", list(PATHS))
 def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, monkeypatch,
                                                                       path):
     build = PATHS[path]
-    run, expect, counters = (build(tmp_path, monkeypatch) if path in ("bgen_read", "mp_scan")
+    run, expect, counters = (build(tmp_path, monkeypatch) if path in WITH_MONKEYPATCH
                              else build(tmp_path))
     plain = run()
     assert timers.records == [] and timers.summary()["counters"] == {}
@@ -373,6 +387,9 @@ def test_a_profiled_path_records_its_spans_and_gives_the_same_results(tmp_path, 
         assert summary["spans"]["mp.residuals"]["count"] == 1
     elif path in STAGED:
         assert set(summary["counters"]) == PLINK_COUNTERS
+    if path == "dense_reml_triangular":
+        # every iteration's V and the BLUE/BLUP phase's
+        assert summary["counters"] == {"spd.triangular_inverses": int(traced["iterations"]) + 1}
     if path == "bgen_read":
         # 20 variants in batches of 8; a layout-2 block of N = 30 samples
         # at 8 bits holds 10 + 3N bytes (BGEN v1.2: N, K, the ploidy
